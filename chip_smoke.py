@@ -4,22 +4,37 @@
     python3 chip_smoke.py [--n 1000000] [--queries 10000]
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the build of the four CUDA kernels (one ``nvcc`` per source, in
+   and the build of the four CUDA sources (one ``nvcc`` per source, in
    parallel, into ``build/repro_torch_kernels``).
-2. Main path, with every launch counter zeroed just before and read just
-   after: ``make_clustered(n, 128, n_queries, seed=0)`` (SIFT1M/BIGANN-1M's
-   shape, ground truth from K4), ``build_scalegann`` with the
+2. ANN main path, with every launch counter zeroed just before and read
+   just after: ``make_clustered(n, 128, n_queries, seed=0)`` (SIFT1M/
+   BIGANN-1M's shape, ground truth from K4), ``build_scalegann`` with the
    ``IndexConfig`` defaults (16 clusters, R=64, L=128, ε=1.2, ω=2), merged
    search at k=10, width=64 in f32, bf16 and uint8, and routed split search
-   with nprobe=2 and "auto" in f32 and uint8.  Every kernel must have
-   launched.
-3. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: K1 [4096,128]x[65536,128] (f32/bf16, L2/IP), K2 at the
-   routing tile (L2 bit-exact), K4 at one shard's shape with k=129, K3 on
-   the built merged graph for 256 queries in f32, bf16 and uint8 (uint8
+   with nprobe=2 and "auto" in f32 and uint8.  K1–K4 must have launched.
+3. Each ANN kernel against its plain PyTorch version on the card, at the
+   main path's shapes: K1 [4096,128]x[65536,128] (f32/bf16, L2/IP), K2 at
+   the routing tile (L2 bit-exact), K4 at one shard's shape with k=129, K3
+   on the built merged graph for 256 queries in f32, bf16 and uint8 (uint8
    ids and counters exact).  Times come from CUDA events.
 4. A small index searched on the card and on the CPU's plain path: the
    same ids and stats (uint8 exact).
+5. LM main path, counters zeroed just before and read just after:
+   TinyLlama-1.1B at full width (22 layers, d_model 2048, GQA 32/4) with
+   seeded random weights in bf16, ``ServeEngine`` with 8 slots and
+   max_len 2048 serving 12 greedy requests (prompts of 512–1024 tokens,
+   64 new tokens each) in two waves.  K5 must launch once per layer and
+   wave, K6 once per layer and decode step.  Then one prefill and three
+   decode steps under torch.profiler: host wall time against device busy
+   time, and the kernels that take it.
+6. K5 against its plain version, causal, in bf16 (rtol=atol=8e-3) at
+   each wave's shape of the LM path (ragged last tiles), then at q
+   [8,32,1024,64], k/v [8,4,1024,64] in bf16 and f32 (1e-5); K6 at q
+   [8,32,64] against a [8,4,2048,64] cache with the main path's longest
+   length (f32, 1e-5; bf16, 8e-3) and with ragged lengths (bf16, 8e-3).
+   SDPA is timed as the yardstick.
+7. The small TinyLlama config in f32, prefill and 4 decode steps on the
+   card and on the CPU's plain path: logits to 1e-4, greedy tokens equal.
 
 Prints one ``{"kernels": [...]}`` line, then the card's line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero on any
@@ -39,7 +54,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_FP32_FLOPS = 67e12     # outside the tensor cores (no TF32)
 H100_INT8_OPS = 1979e12     # dense int8 tensor-core rate
+H100_BF16_FLOPS = 989e12    # dense bf16 tensor-core rate
 H100_HBM_BYTES = 3.35e12    # HBM3 bytes per second
+
+
+ANN_KERNELS = ("pairwise_distance", "pairwise_distance_u8", "fused_beam", "knn")
+LM_KERNELS = ("flash_attention", "flash_decode")
+LM_NEW_TOKENS = 64
 
 
 class SmokeError(RuntimeError):
@@ -140,7 +161,7 @@ def main_path(torch, args):
             f"hops/q={pq['hops']:.1f}")
         need(ids.shape == (len(ds.queries), 10), "search output shape")
         results[(kind, nprobe, dtype)] = rec
-    launches = dict(LAUNCHES)
+    launches = {name: LAUNCHES[name] for name in ANN_KERNELS}
     log(f"main-path launches {json.dumps(launches)}")
     for name, count in launches.items():
         need(count > 0, f"kernel {name} was not launched on the main path")
@@ -364,6 +385,269 @@ def check_small_against_cpu(torch):
                      "from the CPU beyond near-ties")
 
 
+def lm_path(torch):
+    """TinyLlama-1.1B served at full width; returns the LM kernels' launch
+    counts and the longest cache length a decode step attended."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = get_arch("tinyllama_1_1b")
+    lm = build_model(cfg, max_seq_len=2048)
+    t0 = time.perf_counter()
+    params = lm.init(seed=0)
+    scfg = ServeConfig(max_len=2048, n_slots=8, temperature=0.0)
+    engine = ServeEngine(lm, params, scfg)
+    del params
+    torch.cuda.synchronize()
+    log(f"LM {cfg.name} params={lm.n_params} layers={cfg.n_layers} "
+        f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"init+cast_s={time.perf_counter() - t0:.3f} (seeded random bf16)")
+    engine.generate([Request(rid=-1, prompt=np.arange(1, 17, dtype=np.int32),
+                             max_new_tokens=2)])  # warm-up
+    engine.waves.clear()
+    rng = np.random.default_rng(0)
+    lens = rng.integers(512, 1025, 12)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n),
+                                               dtype=np.int32),
+                    max_new_tokens=LM_NEW_TOKENS)
+            for i, n in enumerate(lens)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: LAUNCHES[name] for name in LM_KERNELS}
+    others = {n: c for n, c in LAUNCHES.items() if n not in LM_KERNELS and c}
+    for i, w in enumerate(engine.waves):
+        log(f"LM wave {i}: batch={w.batch} prompt_len={w.prompt_len} "
+            f"prompt_tokens={w.prompt_tokens} prefill_s={w.prefill_s:.4f} "
+            f"prefill_tok/s={w.prompt_tokens / w.prefill_s:.1f} "
+            f"(padded {w.batch * w.prompt_len / w.prefill_s:.1f}) "
+            f"decode_steps={w.decode_steps} decode_s={w.decode_s:.4f} "
+            f"decode_tok/s={w.decode_tokens / w.decode_s:.1f} "
+            f"step_ms={1e3 * w.decode_s / max(w.decode_steps, 1):.3f}")
+    log(f"LM serve 12 requests wall_s={wall:.3f} launches "
+        f"{json.dumps(launches)}")
+    waves = -(-len(reqs) // scfg.n_slots)
+    steps = [min(LM_NEW_TOKENS - 1, scfg.max_len - 1 - w.prompt_len)
+             for w in engine.waves]
+    need(len(engine.waves) == waves == 2, "LM requests did not run in 2 waves")
+    need([w.decode_steps for w in engine.waves] == steps,
+         f"decode steps {[w.decode_steps for w in engine.waves]} against "
+         f"the loop's {steps}")
+    need(launches["flash_attention"] == cfg.n_layers * waves,
+         f"K5 launched {launches['flash_attention']} times, expected "
+         f"{cfg.n_layers * waves}")
+    need(launches["flash_decode"] == cfg.n_layers * sum(steps)
+         == cfg.n_layers * (LM_NEW_TOKENS - 1) * waves,
+         f"K6 launched {launches['flash_decode']} times, expected "
+         f"{cfg.n_layers * sum(steps)}")
+    need(not others, f"the LM path launched ANN kernels {others}")
+    need(all(r.done and len(r.output) == LM_NEW_TOKENS for r in reqs),
+         "an LM request did not complete")
+    need(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+         "an LM token lies outside the vocabulary")
+    longest = max(w.prompt_len + s for w, s in zip(engine.waves, steps))
+    return launches, longest, engine
+
+
+def lm_breakdown(torch, engine, batch: int = 8, prompt: int = 1000):
+    """Where a prefill and a decode step spend their time: host wall time
+    against device busy time (sum of kernel times) under torch.profiler,
+    outside the timed run.  Launches made here are not counted as the
+    main path's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, engine.model.cfg.vocab_size, (batch, prompt),
+                         device="cuda", generator=gen)
+    logits, cache = engine._prefill(toks)
+    tok = logits[:, :engine.model.cfg.vocab_size].argmax(-1)
+    engine._decode(cache, tok, prompt)
+    torch.cuda.synchronize()
+
+    def report(what, fn, n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n * 1e3
+        rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in rows) / n / 1e3
+        kernels = sum(e.count for e in rows) / n
+        top = ", ".join(f"{e.key[:48]} {e.self_device_time_total / n / 1e3:.3f}"
+                        for e in rows[:5])
+        log(f"LM {what} (batch {batch}, {prompt} tokens, profiled): "
+            f"wall_ms={wall:.3f} device_busy_ms={busy:.3f} "
+            f"device_idle_share={1 - busy / wall:.3f} "
+            f"device_ops={kernels:.0f} top_ms: {top}")
+
+    report("prefill", lambda i: engine._prefill(toks), 1)
+    report("decode step", lambda i: engine._decode(cache, tok, prompt + 1 + i),
+           3)
+
+
+def allclose_err(torch, got, want, tol: float) -> float:
+    """Max |got - want|; fails unless |got - want| <= tol + tol·|want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    need(bool(torch.isfinite(got).all()), "non-finite kernel output")
+    need(bool((diff <= tol + tol * want.abs()).all()),
+         f"max |err| {float(diff.max()):.3e} beyond rtol=atol={tol}")
+    return float(diff.max())
+
+
+# bf16: both sides compute in f32 and round the output once, so two bf16
+# ulps.  f32: ~10x the measured error, well under what a bf16 P or TF32
+# products (both ruled out by design) would give.
+TOL = {"bfloat16": 8e-3, "float32": 1e-5}
+
+
+def check_k5(torch, rows, waves):
+    """K5 at the main path's wave shapes ``waves`` [(batch, prompt_len)]
+    (ragged last tiles), then at q [8,32,1024,64] with its timings."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    h, hkv, dh = 32, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for b, s in waves:
+        q = torch.randn(b, h, s, dh, device="cuda", generator=g).bfloat16()
+        k = torch.randn(b, hkv, s, dh, device="cuda", generator=g).bfloat16()
+        v = torch.randn(b, hkv, s, dh, device="cuda", generator=g).bfloat16()
+        got = flash_attention_cuda(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, causal=True)
+        err = allclose_err(torch, got, want, TOL["bfloat16"])
+        log(f"K5 bfloat16 causal wave shape q[{b},{h},{s},{dh}] "
+            f"kv[{b},{hkv},{s},{dh}] max_abs_err={err:.3e}")
+        del q, k, v, got, want
+    b, s = 8, 1024
+    q = torch.randn(b, h, s, dh, device="cuda", generator=g)
+    k = torch.randn(b, hkv, s, dh, device="cuda", generator=g)
+    v = torch.randn(b, hkv, s, dh, device="cuda", generator=g)
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dtype)[6:]]
+        qq, kk, vv = q.to(dtype), k.to(dtype), v.to(dtype)
+        got = flash_attention_cuda(qq, kk, vv, causal=True)
+        want = flash_attention_plain(qq, kk, vv, causal=True)
+        torch.cuda.synchronize()
+        err = allclose_err(torch, got, want, tol)
+        ms = events_ms(torch, lambda: flash_attention_cuda(qq, kk, vv,
+                                                           causal=True))
+        plain_ms = events_ms(torch, lambda: flash_attention_plain(
+            qq, kk, vv, causal=True))
+        lib = events_ms(torch, lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True, enable_gqa=True))
+        log(f"K5 {str(dtype)[6:]} causal q[{b},{h},{s},{dh}] "
+            f"kv[{b},{hkv},{s},{dh}] max_abs_err={err:.3e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={lib:.4f}")
+        if dtype == torch.bfloat16:
+            n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+            flops = 4 * b * h * dh * s * (s + 1) / 2
+            bnd, by = bound_ms(n_bytes, flops, H100_FP32_FLOPS)
+            log(f"K5 bound {bnd:.4f} ms by {by} (FP32); bf16 tensor-core "
+                f"bound {flops / H100_BF16_FLOPS * 1e3:.4f} ms; bytes "
+                f"{n_bytes / H100_HBM_BYTES * 1e3:.4f} ms")
+            rows["flash_attention"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib)
+
+
+def check_k6(torch, rows, longest: int):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_decode_cuda,
+                                                     flash_decode_plain)
+
+    b, h, hkv, t, dh = 8, 32, 4, 2048, 64
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q32 = torch.randn(b, h, dh, device="cuda", generator=g)
+    kc32 = torch.randn(b, hkv, t, dh, device="cuda", generator=g)
+    vc32 = torch.randn(b, hkv, t, dh, device="cuda", generator=g)
+    lens = torch.full((b,), longest, dtype=torch.int32, device="cuda")
+    err = allclose_err(torch, flash_decode_cuda(q32, kc32, vc32, lens),
+                       flash_decode_plain(q32, kc32, vc32, lens),
+                       TOL["float32"])
+    log(f"K6 float32 main q[{b},{h},{dh}] cache[{b},{hkv},{t},{dh}] "
+        f"lens={longest} max_abs_err={err:.3e}")
+    q, kc, vc = q32.bfloat16(), kc32.bfloat16(), vc32.bfloat16()
+    del q32, kc32, vc32
+    cases = (("main", [longest] * b),
+             ("ragged", [1, 63, 64, 65, 1000, 1087, 2047, 2048]))
+    for name, lens_list in cases:
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        got = flash_decode_cuda(q, kc, vc, lens)
+        want = flash_decode_plain(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        err = allclose_err(torch, got, want, TOL["bfloat16"])
+        ms = events_ms(torch, lambda: flash_decode_cuda(q, kc, vc, lens),
+                       reps=20)
+        plain_ms = events_ms(torch, lambda: flash_decode_plain(q, kc, vc,
+                                                               lens))
+        mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+        lib = events_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :],
+            enable_gqa=True), reps=20)
+        total = sum(lens_list)
+        n_bytes = 2 * (2 * hkv * total * dh) + 2 * 2 * q.numel()
+        bnd, by = bound_ms(n_bytes, 4 * h * dh * total, H100_FP32_FLOPS)
+        log(f"K6 bf16 {name} q[{b},{h},{dh}] cache[{b},{hkv},{t},{dh}] "
+            f"lens={lens_list} max_abs_err={err:.3e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={lib:.4f} "
+            f"bound_ms={bnd:.5f} ({by})")
+        if name == "main":
+            rows["flash_decode"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib)
+
+
+def check_small_lm_against_cpu(torch):
+    """The small TinyLlama config in f32 on the card (K5, K6) and on the
+    CPU (plain versions): logits to 1e-4 and the same greedy tokens."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.models.model import build_model, cast_params
+
+    cfg = smoke_config(get_arch("tinyllama_1_1b"))
+    lm = build_model(cfg)
+    on_cpu = lm.init(seed=0, device="cpu")
+    on_card = cast_params(cfg, on_cpu, torch.float32, "cuda")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(1, cfg.vocab_size, (3, 150))
+    toks[0, :40] = 0  # left padding
+    f32 = dict(dtype=torch.float32)
+    runs = {}
+    for dev, params in (("cuda", on_card), ("cpu", on_cpu)):
+        logits, cache = lm.prefill_fn(
+            params, {"tokens": torch.from_numpy(toks).to(dev)}, 160, **f32)
+        out, tokens = [logits.cpu()], []
+        for step in range(4):
+            tok = logits[:, :cfg.vocab_size].argmax(-1)
+            tokens.append(tok.cpu())
+            logits, cache = lm.decode_fn(params, cache, tok, 150 + step,
+                                         **f32)
+            out.append(logits.cpu())
+        runs[dev] = (out, tokens)
+    err = max(allclose_err(torch, a, b, 1e-4)
+              for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    same = all(torch.equal(a, b) for a, b in zip(runs["cuda"][1],
+                                                 runs["cpu"][1]))
+    log(f"small LM (f32, {cfg.n_layers} layers, head_dim 16) card vs CPU: "
+        f"max_abs_err={err:.3e} greedy_equal={same}")
+    need(same, "greedy tokens on the card differ from the CPU's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -397,6 +681,10 @@ def main(argv=None) -> int:
                        "src/repro/kernels/beam.py:593"),
         "knn": ("src/repro_torch/kernels/csrc/knn.cu",
                 "src/repro/kernels/topk.py:159"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/attention.cu",
+                            "src/repro/kernels/flash_attention.py:81"),
+        "flash_decode": ("src/repro_torch/kernels/csrc/attention.cu",
+                         "src/repro/kernels/flash_attention.py:189"),
     }
     for name, (src, rep) in meta.items():
         rows[name].update(source=src, replaces=rep)
@@ -411,6 +699,17 @@ def main(argv=None) -> int:
     check_k4(torch, rows, ds, res)
     check_k3(torch, rows, ds, merged)
     check_small_against_cpu(torch)
+    t0 = time.perf_counter()
+    lm_launches, longest, engine = lm_path(torch)
+    for name, count in lm_launches.items():
+        rows[name]["launches"] = count
+    lm_breakdown(torch, engine)
+    waves = [(w.batch, w.prompt_len) for w in engine.waves]
+    del engine
+    check_k5(torch, rows, waves)
+    check_k6(torch, rows, longest)
+    check_small_lm_against_cpu(torch)
+    log(f"LM phases {time.perf_counter() - t0:.3f} s")
     log(f"total {time.perf_counter() - t_start:.3f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

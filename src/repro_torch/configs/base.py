@@ -1,10 +1,84 @@
-"""ScaleGANN index-build config (counterpart of ``repro/configs/base.py``'s
-``IndexConfig``; the paper's own knobs, §IV–V)."""
+"""Configs of the port (counterpart of ``repro/configs/base.py``): the
+language-model configs with their registry, and the ScaleGANN index-build
+config (the paper's own knobs, §IV–V).
+
+Every architecture registers a :class:`ModelConfig` from its module
+``repro_torch/configs/<arch>.py``; :func:`get_arch` imports it on first
+use.  The numbers are the reference's, module for module.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
+
+# ---------------------------------------------------------------------------
+# Model configs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The dense fields of the reference's ``ModelConfig``: the ones this
+    port reads.  A family's own fields (MoE, SSM, encoder, patches) come
+    with the slice that ports it."""
+
+    name: str
+    family: str  # dense (other families raise in models/model.py)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 → d_model // n_heads
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_arch(name: str) -> ModelConfig:
+    name = name.replace("-", "_").replace(".", "_")
+    if name not in _REGISTRY:
+        importlib.import_module(f"repro_torch.configs.{name}")
+    return _REGISTRY[name]
+
+
+def smoke_config(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests: small width and
+    depth, tiny vocab (the reference's numbers for a dense model)."""
+    return dataclasses.replace(
+        cfg,
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+    )
+
+
+# ---------------------------------------------------------------------------
+# ScaleGANN index-build config
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("distance", "knn", "beam")
+SOURCES = ("distance", "knn", "beam", "attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -31,6 +31,8 @@ LAUNCHES: dict[str, int] = {
     "pairwise_distance_u8": 0,
     "fused_beam": 0,
     "knn": 0,
+    "flash_attention": 0,
+    "flash_decode": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

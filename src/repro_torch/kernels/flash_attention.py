@@ -1,0 +1,131 @@
+"""Flash attention (prefill) and flash decode on the card (counterpart of
+``repro/kernels/flash_attention.py``): the wrappers of the CUDA kernels in
+``csrc/attention.cu`` (K5: GQA attention over a sequence, K6: one query
+token per row against a KV cache) and their plain versions.  Callers go
+through :mod:`repro_torch.kernels.ops`, which picks the plain version for a
+CPU tensor.
+
+Both kernels take f32 or bf16, compute in f32 (no tensor cores, no TF32),
+and mask their own ragged edges: no sequence length has to be a multiple
+of a tile.  Head dims 16, 32, 64 and 128 are built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import decode_attention as flash_decode_plain
+from repro_torch.kernels.ref import mha_attention as flash_attention_plain
+
+__all__ = ["flash_attention_cuda", "flash_attention_plain",
+           "flash_decode_cuda", "flash_decode_plain"]
+
+HEAD_DIMS = (16, 32, 64, 128)
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may take on Hopper
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.cache
+def _lib():
+    lib = _build.library("attention")
+    lib.repro_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _F, _I, _I, _P]
+    lib.repro_flash_attention.restype = _I
+    lib.repro_flash_decode.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _F, _I, _P]
+    lib.repro_flash_decode.restype = _I
+    lib.repro_flash_decode_smem.argtypes = [_I, _I]
+    lib.repro_flash_decode_smem.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.cache
+def _decode_fits(group: int, dh: int) -> bool:
+    """Whether K6's block for a GQA group of ``group`` heads at ``dh`` fits
+    one block's shared memory."""
+    return _lib().repro_flash_decode_smem(group, dh) <= _SMEM_LIMIT
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_dims: int) -> tuple[int, int, int]:
+    """Validate [B,H,(S,)Dh] q against [B,Hkv,T,Dh] k/v on one card, one
+    dtype, contiguous; returns (H, Hkv, Dh)."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be CUDA tensors on one device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != q_dims or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    h, dh = q.shape[1], q.shape[-1]
+    hkv = k.shape[1]
+    if q.shape[0] != k.shape[0] or k.shape[3] != dh or hkv == 0 or h % hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match k/v "
+                         f"{tuple(k.shape)} (H must be a multiple of Hkv)")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} not built (one of {HEAD_DIMS})")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    return h, hkv, dh
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         scale: float | None = None) -> torch.Tensor:
+    """K5: q [B,H,S,Dh], k/v [B,Hkv,T,Dh] -> [B,H,S,Dh] in q's dtype."""
+    h, hkv, dh = _check(q, k, v, 4)
+    b, s, t = q.shape[0], q.shape[2], k.shape[2]
+    if b > 65535 or h > 65535:
+        raise ValueError("batch or heads too large for one launch")
+    scale = scale if scale is not None else dh**-0.5
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.count("flash_attention")
+    rc = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
+        s, t, dh, float(scale), int(causal), int(q.dtype == torch.bfloat16),
+        stream)
+    _build.check(rc, "flash_attention")
+    return out
+
+
+def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                      scale: float | None = None) -> torch.Tensor:
+    """K6: q [B,H,Dh] against k/v cache [B,Hkv,T,Dh] with the first
+    ``cache_len[b]`` positions valid (clamped to [0, T]) -> [B,H,Dh]."""
+    h, hkv, dh = _check(q, k_cache, v_cache, 3)
+    b, t = q.shape[0], k_cache.shape[2]
+    lens = torch.as_tensor(cache_len, device=q.device).to(torch.int32)
+    if lens.shape != (b,):
+        raise ValueError(f"cache_len must be [{b}], got {tuple(lens.shape)}")
+    lens = lens.contiguous()
+    if b > 65535 or hkv > 65535:
+        raise ValueError("batch or KV heads too large for one launch")
+    scale = scale if scale is not None else dh**-0.5
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    if not _decode_fits(h // hkv, dh):
+        raise ValueError(f"a GQA group of {h // hkv} heads at head_dim {dh} "
+                         "exceeds the block's shared memory")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.count("flash_decode")
+    rc = lib.repro_flash_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), b, h, hkv, t, dh, float(scale),
+        int(q.dtype == torch.bfloat16), stream)
+    _build.check(rc, "flash_decode")
+    return out

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import distance as _distance
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import topk as _topk
 
@@ -49,6 +50,30 @@ def knn(q: torch.Tensor, x: torch.Tensor, k: int, metric: str = "l2"):
                               k, metric)
         return d, i.long()
     return ref.knn(q.float(), x.float(), k, metric)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Serving-path attention (K5): q [B,H,S,Dh], k/v [B,Hkv,T,Dh] ->
+    [B,H,S,Dh] in q's dtype, f32 inside."""
+    if _on_cuda(q, k):
+        return _flash.flash_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            scale=scale)
+    return ref.mha_attention(q, k, v, causal=causal, scale=scale)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                 scale: float | None = None) -> torch.Tensor:
+    """One-token decode attention (K6). q: [B,H,Dh], cache: [B,Hkv,T,Dh],
+    cache_len: [B] valid positions per row."""
+    if _on_cuda(q, k_cache):
+        return _flash.flash_decode_cuda(
+            q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+            cache_len, scale=scale)
+    return ref.decode_attention(q, k_cache, v_cache, cache_len, scale)
 
 
 def rerank_exact(

@@ -97,3 +97,68 @@ def assign_nearest(x, centroids, metric: str = "l2"):
     d = pairwise_distance(x, centroids, metric)
     idx = torch.argmin(d, dim=1)
     return idx, d.gather(1, idx[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Attention (plain versions of K5 and K6)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # the TPU kernels' mask value
+
+
+def _masked_softmax_av(logits, valid, vf):
+    """Dense softmax over the last axis of f32 ``logits`` with invalid
+    entries set to -1e30 and dropped from the sum, the denominator clamped
+    at 1e-30 (a row with no valid key gives 0), then the product with f32
+    ``vf``.  ``valid`` broadcasts against ``logits``."""
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m) * valid
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (p / denom) @ vf
+
+
+def mha_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """Multi-head attention, the plain version of K5.
+
+    q: [B, H, S, Dh], k/v: [B, Hkv, T, Dh] with H % Hkv == 0 (GQA: head h
+    reads KV head h // (H / Hkv)).  Query i attends keys <= i + (T - S) when
+    causal.  q is scaled in f32 before the product, scores and probabilities
+    stay f32 (V is upcast), and the result is cast to q.dtype.
+    """
+    b, h, s, dh = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = scale if scale is not None else dh**-0.5
+    qf = (q.float() * scale).reshape(b, hkv, group, s, dh)
+    logits = qf @ k.float()[:, :, None].transpose(-1, -2)  # [b,hkv,g,s,t]
+    if causal:
+        pos_q = torch.arange(s, device=q.device)[:, None] + (t - s)
+        valid = pos_q >= torch.arange(t, device=q.device)[None, :]
+    else:
+        valid = torch.ones((1, t), dtype=torch.bool, device=q.device)
+    out = _masked_softmax_av(logits, valid, v.float()[:, :, None])
+    return out.reshape(b, h, s, dh).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len=None, scale=None):
+    """One-token attention against a KV cache, the plain version of K6.
+
+    q: [B, H, Dh]; k_cache/v_cache: [B, Hkv, T, Dh]; cache_len: [B] valid
+    lengths (None -> all T valid; 0 gives a zero row).  Returns [B, H, Dh]
+    in q.dtype, computed in f32.
+    """
+    b, h, dh = q.shape
+    hkv, t = k_cache.shape[1], k_cache.shape[2]
+    group = h // hkv
+    scale = scale if scale is not None else dh**-0.5
+    qf = (q.float() * scale).reshape(b, hkv, group, 1, dh)
+    logits = qf @ k_cache.float()[:, :, None].transpose(-1, -2)  # [b,hkv,g,1,t]
+    if cache_len is None:
+        valid = torch.ones((1, t), dtype=torch.bool, device=q.device)
+    else:
+        lens = torch.as_tensor(cache_len, device=q.device)
+        valid = (torch.arange(t, device=q.device)[None, :]
+                 < lens[:, None]).reshape(b, 1, 1, 1, t)
+    out = _masked_softmax_av(logits, valid, v_cache.float()[:, :, None])
+    return out.reshape(b, h, dh).to(q.dtype)

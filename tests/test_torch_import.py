@@ -30,6 +30,20 @@ ids2, _ = search(res.shard_topology(ds.data), ds.queries, 5, width=16,
                  nprobe="auto", device="cpu")
 assert ids.shape == ids2.shape == (8, 5) and stats.n_queries == 8
 assert recall_at(ids, ds.gt, 5) > 0.5
+
+import torch
+from repro_torch.configs.base import get_arch, smoke_config
+from repro_torch.models.model import build_model
+from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+lm = build_model(smoke_config(get_arch("tinyllama_1_1b")))
+params = lm.init(seed=0, device="cpu")
+logits, cache = lm.prefill_fn(params, {"tokens": torch.ones(2, 9, dtype=torch.long)}, 16)
+logits, cache = lm.decode_fn(params, cache, logits[:, :256].argmax(-1), 9)
+assert logits.shape == (2, 256) and bool(torch.isfinite(logits.float()).all())
+reqs = [Request(rid=0, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=3)]
+ServeEngine(lm, params, ServeConfig(max_len=16), device="cpu").generate(reqs)
+assert reqs[0].done and len(reqs[0].output) == 3
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -78,3 +92,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         make_clustered(64, 8, n_queries=2)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    lm = build_model(smoke_config(get_arch("tinyllama_1_1b")))
+    params = lm.init(seed=0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(lm, params, ServeConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache_fn(1, 8)
