@@ -13,10 +13,15 @@
    search at k=10, width=64 in f32, bf16 and uint8, and routed split search
    with nprobe=2 and "auto" in f32 and uint8.  K1–K4 must have launched.
 3. Each ANN kernel against its plain PyTorch version on the card, at the
-   main path's shapes: K1 [4096,128]x[65536,128] (f32/bf16, L2/IP), K2 at
-   the routing tile (L2 bit-exact), K4 at one shard's shape with k=129, K3
-   on the built merged graph for 256 queries in f32, bf16 and uint8 (uint8
-   ids and counters exact).  Times come from CUDA events.
+   main path's shapes: K1 at every operand shape the main path gave it
+   (tallied during step 2; launches, bound, cdist/mm), then at
+   [4096,128]x[65536,128] (f32/bf16, L2/IP), which no caller runs; K2 at
+   the routing tile (L2 bit-exact); K4 on integer points with duplicates
+   (f32-exact distances, ids equal), at ragged N, k > N, k = 1, k = 256,
+   IP and ground truth's last block (1808 x 1M, k=10), then at one shard's
+   shape with k=129 beside cdist + topk; K3 on the built merged graph for
+   256 queries in f32, bf16 and uint8 (uint8 ids and counters exact).
+   Times come from CUDA events.
 4. A small index searched on the card and on the CPU's plain path: the
    same ids and stats (uint8 exact).
 5. LM main path, counters zeroed just before and read just after:
@@ -27,12 +32,15 @@
    wave, K6 once per layer and decode step.  Then one prefill and three
    decode steps under torch.profiler: host wall time against device busy
    time, and the kernels that take it.
-6. K5 against its plain version, causal, in bf16 (rtol=atol=8e-3) at
-   each wave's shape of the LM path (ragged last tiles), then at q
-   [8,32,1024,64], k/v [8,4,1024,64] in bf16 and f32 (1e-5); K6 at q
-   [8,32,64] against a [8,4,2048,64] cache with the main path's longest
-   length (f32, 1e-5; bf16, 8e-3) and with ragged lengths (bf16, 8e-3).
-   SDPA is timed as the yardstick.
+6. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
+   shape of the LM path (ragged last tiles), at head dims 16, 32 and 128,
+   non-causal, S < T and GQA groups 1 and 8 (with the share of outputs
+   bit-equal to the plain version), then at q [8,32,1024,64], k/v
+   [8,4,1024,64] in bf16 (also timed with a single bf16 P, to price the
+   hi + lo split) and f32 (1e-5); K6 at q [8,32,64] against a
+   [8,4,2048,64] cache with the main path's longest length (f32, 1e-5;
+   bf16, 8e-3) and with ragged lengths (bf16, 8e-3).  SDPA is timed as the
+   yardstick.
 7. The small TinyLlama config in f32, prefill and 4 decode steps on the
    card and on the CPU's plain path: logits to 1e-4, greedy tokens equal.
 
@@ -44,6 +52,8 @@ failure, and when CUDA is missing.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -118,6 +128,29 @@ def environment(torch):
     return card
 
 
+@contextlib.contextmanager
+def k1_tally():
+    """Tally K1's operand shapes while the block runs, beside (not instead
+    of) its launch counter."""
+    from repro_torch.kernels import distance
+
+    shapes: collections.Counter = collections.Counter()
+    launch = distance.pairwise_distance_cuda
+
+    def tallied(q, x, metric="l2"):
+        shapes[(q.shape[0], x.shape[0], q.shape[1], str(q.dtype)[6:],
+                metric)] += 1
+        return launch(q, x, metric)
+
+    distance.pairwise_distance_cuda = tallied
+    try:
+        yield shapes
+    finally:
+        distance.pairwise_distance_cuda = launch
+    log(f"K1 main-path shapes (M, N, D, dtype, metric): launches "
+        f"{dict(shapes.most_common())}")
+
+
 def main_path(torch, args):
     """The README's quickstart at full size; returns what the checks need."""
     from repro_torch.configs.base import IndexConfig
@@ -172,39 +205,50 @@ def main_path(torch, args):
     return ds, res, merged, split, launches
 
 
-def check_k1(torch, rows):
+def check_k1(torch, rows, k1_shapes):
+    """K1 at each operand shape the main path gave it (launches, bound,
+    kernel, plain and one library call), then at [4096,128]x[65536,128],
+    which no caller of the main path runs."""
     from repro_torch.kernels import distance
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(4096, 128, device="cuda", generator=g)
-    x = torch.randn(65536, 128, device="cuda", generator=g)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    shapes = [(key, n) for key, n in k1_shapes.most_common()]
+    shapes += [((4096, 65536, 128, dt, metric), 0)
+               for dt in ("float32", "bfloat16") for metric in ("l2", "ip")]
     entry = None
-    for dtype in (torch.float32, torch.bfloat16):
-        for metric in ("l2", "ip"):
-            qq, xx = q.to(dtype), x.to(dtype)
-            got = distance.pairwise_distance_cuda(qq, xx, metric)
-            want = distance.pairwise_distance_plain(qq, xx, metric)
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            ms = events_ms(torch, lambda: distance.pairwise_distance_cuda(
-                qq, xx, metric))
-            plain_ms = events_ms(torch, lambda: distance
-                                 .pairwise_distance_plain(qq, xx, metric))
-            if metric == "l2" and dtype == torch.float32:
-                lib = events_ms(torch, lambda: torch.cdist(qq, xx))
-            else:
-                lib = events_ms(torch, lambda: torch.mm(qq, xx.T))
-            log(f"K1 {str(dtype)[6:]} {metric} [4096,128]x[65536,128] "
-                f"max_abs_err={err:.3e} (max |d| {scale:.1f}) ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} library_ms={lib:.4f} "
-                f"({'cdist' if metric == 'l2' and dtype == torch.float32 else 'mm'})")
-            need(err <= 1e-5 * scale + 1e-3, f"K1 {dtype} {metric} disagrees")
-            if entry is None:
-                m, n, d = 4096, 65536, 128
-                b, by = bound_ms((m + n) * d * 4 + m * n * 4, 2 * m * n * d,
-                                 H100_FP32_FLOPS)
-                entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b, bound_by=by, library_ms=lib)
+    for (m, n, d, dt, metric), launches in shapes:
+        dtype = dtypes[dt]
+        qq = torch.randn(m, d, device="cuda", generator=g).to(dtype)
+        xx = torch.randn(n, d, device="cuda", generator=g).to(dtype)
+        got = distance.pairwise_distance_cuda(qq, xx, metric)
+        want = distance.pairwise_distance_plain(qq, xx, metric)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        reps = 3 if launches == 0 else 20
+        ms = events_ms(torch, lambda: distance.pairwise_distance_cuda(
+            qq, xx, metric), reps=reps)
+        plain_ms = events_ms(torch, lambda: distance
+                             .pairwise_distance_plain(qq, xx, metric),
+                             reps=reps)
+        use_cdist = metric == "l2" and dtype == torch.float32
+        if use_cdist:
+            lib = events_ms(torch, lambda: torch.cdist(qq, xx), reps=reps)
+        else:
+            lib = events_ms(torch, lambda: torch.mm(qq, xx.T), reps=reps)
+        b, by = bound_ms((m + n) * d * qq.element_size() + m * n * 4,
+                         2 * m * n * d, H100_FP32_FLOPS)
+        where = (f"main path, {launches} launches" if launches
+                 else "off the main path")
+        log(f"K1 {dt} {metric} [{m},{d}]x[{n},{d}] ({where}) "
+            f"max_abs_err={err:.3e} (max |d| {scale:.1f}) ms={ms:.5f} "
+            f"plain_ms={plain_ms:.5f} library_ms={lib:.5f} "
+            f"({'cdist' if use_cdist else 'mm'}) bound_ms={b:.5f} ({by})")
+        need(err <= 1e-5 * scale + 1e-3, f"K1 {dt} {metric} disagrees")
+        if entry is None:  # the row: the shape with the most launches
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by, library_ms=lib)
+        del qq, xx, got, want
     rows["pairwise_distance"].update(entry)
 
 
@@ -241,7 +285,8 @@ def check_k2(torch, rows, ds, split):
         library_ms=None)
 
 
-def near_ties(torch, q, x, got_ids, want_ids, rtol: float) -> int:
+def near_ties(torch, q, x, got_ids, want_ids, rtol: float,
+               metric: str = "l2") -> int:
     """Count positions where two id lists differ by more than a near-tie:
     both ids' distances to the row's query, in float64, within ``rtol``."""
     rows, cols = torch.nonzero(got_ids != want_ids, as_tuple=True)
@@ -251,15 +296,59 @@ def near_ties(torch, q, x, got_ids, want_ids, rtol: float) -> int:
     if bool(((a < 0) | (b < 0)).any()):
         return int(rows.numel())
     qd = q[rows].double()
-    da = ((x[a].double() - qd) ** 2).sum(dim=1)
-    db = ((x[b].double() - qd) ** 2).sum(dim=1)
+    if metric == "ip":
+        da = -(x[a].double() * qd).sum(dim=1)
+        db = -(x[b].double() * qd).sum(dim=1)
+    else:
+        da = ((x[a].double() - qd) ** 2).sum(dim=1)
+        db = ((x[b].double() - qd) ** 2).sum(dim=1)
     return int(((da - db).abs() > rtol * db.abs().clamp_min(1e-30)).sum())
 
 
 def check_k4(torch, rows, ds, res):
+    """K4 against its plain version: the tie-exact case (ids equal), the
+    edge cases, ground truth's last block, then the largest shard (ids equal
+    up to near-ties) with its timings beside cdist and topk."""
     import numpy as np
 
     from repro_torch.kernels import topk
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    # integer coordinates, every point twice: f32 distances are exact
+    # integers, so any order of summation gives the plain version's ties
+    pts = torch.randint(0, 6, (20000, 128), device="cuda", generator=g).float()
+    pts[10000:] = pts[:10000]
+    rnd = torch.randn(50001, 24, device="cuda", generator=g)
+    cases = [("tie-exact", pts[:1000].contiguous(), pts, 129, "l2", True),
+             ("tie-exact k=10", pts[:1000].contiguous(), pts, 10, "l2", True),
+             ("tie-exact ip", pts[:500].contiguous(), pts, 64, "ip", True),
+             ("ragged n", rnd[:777].contiguous(), rnd, 100, "l2", False),
+             ("k > n", rnd[:100].contiguous(), rnd[:150].contiguous(), 200,
+              "l2", False),
+             ("k = 1", rnd[:1000].contiguous(), rnd, 1, "l2", False),
+             ("k = 256", rnd[:1000].contiguous(), rnd, 256, "l2", False),
+             ("ip", rnd[:1000].contiguous(), rnd, 64, "ip", False)]
+    data = torch.from_numpy(np.ascontiguousarray(ds.data)).cuda()
+    gt_q = torch.from_numpy(np.ascontiguousarray(
+        ds.queries[-(len(ds.queries) % 4096 or 4096):])).cuda()
+    cases.append(("ground truth's last block", gt_q, data, 10, "l2", False))
+    for name, q, x, k, metric, exact in cases:
+        gd, gi = topk.knn_cuda(q, x, k, metric)
+        wd, wi = topk.knn_plain(q, x, k, metric)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(wd)
+        need(bool((torch.isfinite(gd) == fin).all()), f"K4 {name}: padding")
+        err = float((gd - wd)[fin].abs().max())
+        same = bool(torch.equal(gi.long(), wi))
+        bad = 0 if same else near_ties(torch, q, x, gi, wi, 1e-5, metric)
+        log(f"K4 {name} [{q.shape[0]},{q.shape[1]}]x[{x.shape[0]},"
+            f"{x.shape[1]}] k={k} {metric} max_abs_err={err:.3e} "
+            f"ids_equal={same} beyond_near_ties={bad}")
+        need(err <= 1e-5 * float(wd[fin].abs().max()) + 1e-4,
+             f"K4 {name}: distances disagree")
+        need(same if exact else bad == 0, f"K4 {name}: ids disagree")
+        del gd, gi, wd, wi
+    del pts, rnd, data, gt_q
 
     big = max(res.shards, key=lambda s: len(s.ids))
     x = torch.from_numpy(np.ascontiguousarray(ds.data[big.ids])).cuda()
@@ -269,23 +358,45 @@ def check_k4(torch, rows, ds, res):
     wd, wi = topk.knn_plain(q, x, k)
     err = float((gd - wd).abs().max())
     agree = float((gi.long() == wi).float().mean())
-    ms = events_ms(torch, lambda: topk.knn_cuda(q, x, k), reps=2)
+    ms = events_ms(torch, lambda: topk.knn_cuda(q, x, k), reps=5)
     plain_ms = events_ms(torch, lambda: topk.knn_plain(q, x, k), reps=2)
-    cd_ms = events_ms(torch, lambda: torch.cdist(q, x), reps=2)
+    cd_ms = events_ms(torch, lambda: torch.cdist(q, x), reps=3)
     dist = torch.cdist(q, x)
-    tk_ms = events_ms(torch, lambda: torch.topk(dist, k, largest=False), reps=2)
+    tk_ms = events_ms(torch, lambda: torch.topk(dist, k, largest=False), reps=3)
+    del dist
     m, n, d = q.shape[0], x.shape[0], q.shape[1]
     log(f"K4 knn [{m},{d}]x[{n},{d}] k={k} max_abs_err={err:.3e} "
         f"id_agreement={agree:.6f} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"cdist_ms={cd_ms:.4f} topk_ms={tk_ms:.4f}")
+        f"cdist_ms={cd_ms:.4f} topk_ms={tk_ms:.4f} "
+        f"cdist+topk_ms={cd_ms + tk_ms:.4f}")
     bad = near_ties(torch, q, x, gi, wi, 1e-5)
     log(f"K4 ids differing beyond a 1e-5 relative near-tie: {bad}")
     need(err <= 1e-5 * float(wd.abs().max()) + 1e-4, "K4 distances disagree")
     need(bad == 0, "K4 ids disagree beyond near-ties")
+    need(ms < cd_ms + tk_ms, "K4 is slower than cdist + topk")
     b, by = bound_ms((m + n) * d * 4 + m * k * 8, 2 * m * n * d,
                      H100_FP32_FLOPS)
     rows["knn"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b, bound_by=by, library_ms=None)
+    del gd, gi, wd, wi, q, x
+
+    # the largest shard's build, split into its two phases: how much of a
+    # shard build K4 is
+    from repro_torch.configs.base import IndexConfig
+    from repro_torch.core import cagra
+
+    cfg = IndexConfig()
+    vecs = np.ascontiguousarray(ds.data[big.ids])
+    t0 = time.perf_counter()
+    nbrs, dists, _ = cagra.build_knn_graph(vecs, cfg.build_degree,
+                                           metric=cfg.metric)
+    t_knn = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cagra.optimize_graph(vecs, nbrs, dists, cfg.degree, metric=cfg.metric)
+    t_opt = time.perf_counter() - t0
+    log(f"largest shard ({len(vecs)} points) build: knn graph {t_knn:.3f} s "
+        f"({-(-len(vecs) // 4096)} K4 launches), optimize_graph "
+        f"{t_opt:.3f} s")
 
 
 def check_k3(torch, rows, ds, merged):
@@ -513,25 +624,39 @@ TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 
 def check_k5(torch, rows, waves):
     """K5 at the main path's wave shapes ``waves`` [(batch, prompt_len)]
-    (ragged last tiles), then at q [8,32,1024,64] with its timings."""
+    (ragged last tiles), at the shapes that reach its other paths (head
+    dims, non-causal, S < T, GQA groups 1 and 8), then at q [8,32,1024,64]
+    with its timings: split P, a single bf16 P (timed only), SDPA."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain,
+        flash_attention_single_p_cuda)
 
-    h, hkv, dh = 32, 4, 64
     g = torch.Generator(device="cuda").manual_seed(1)
-    for b, s in waves:
+    # (name, b, h, hkv, s, t, dh, causal)
+    cases = [(f"wave shape {i}", b, 32, 4, s, s, 64, True)
+             for i, (b, s) in enumerate(waves)]
+    cases += [("head_dim 16", 2, 16, 4, 300, 300, 16, True),
+              ("head_dim 32", 2, 16, 4, 300, 300, 32, True),
+              ("head_dim 128", 2, 16, 4, 300, 300, 128, True),
+              ("non-causal", 2, 16, 4, 300, 300, 64, False),
+              ("S < T", 2, 16, 4, 100, 350, 64, True),
+              ("GQA group 1", 2, 8, 8, 257, 257, 64, True),
+              ("GQA group 8", 2, 16, 2, 257, 257, 128, True)]
+    for name, b, h, hkv, s, t, dh, causal in cases:
         q = torch.randn(b, h, s, dh, device="cuda", generator=g).bfloat16()
-        k = torch.randn(b, hkv, s, dh, device="cuda", generator=g).bfloat16()
-        v = torch.randn(b, hkv, s, dh, device="cuda", generator=g).bfloat16()
-        got = flash_attention_cuda(q, k, v, causal=True)
-        want = flash_attention_plain(q, k, v, causal=True)
+        k = torch.randn(b, hkv, t, dh, device="cuda", generator=g).bfloat16()
+        v = torch.randn(b, hkv, t, dh, device="cuda", generator=g).bfloat16()
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
         err = allclose_err(torch, got, want, TOL["bfloat16"])
-        log(f"K5 bfloat16 causal wave shape q[{b},{h},{s},{dh}] "
-            f"kv[{b},{hkv},{s},{dh}] max_abs_err={err:.3e}")
+        bit_equal = float((got == want).float().mean())
+        log(f"K5 bfloat16 {name} causal={causal} q[{b},{h},{s},{dh}] "
+            f"kv[{b},{hkv},{t},{dh}] max_abs_err={err:.3e} "
+            f"bit_equal_share={bit_equal:.6f}")
         del q, k, v, got, want
-    b, s = 8, 1024
+    b, s, h, hkv, dh = 8, 1024, 32, 4, 64
     q = torch.randn(b, h, s, dh, device="cuda", generator=g)
     k = torch.randn(b, hkv, s, dh, device="cuda", generator=g)
     v = torch.randn(b, hkv, s, dh, device="cuda", generator=g)
@@ -542,22 +667,38 @@ def check_k5(torch, rows, waves):
         want = flash_attention_plain(qq, kk, vv, causal=True)
         torch.cuda.synchronize()
         err = allclose_err(torch, got, want, tol)
+        bit_equal = float((got == want).float().mean())
         ms = events_ms(torch, lambda: flash_attention_cuda(qq, kk, vv,
-                                                           causal=True))
+                                                           causal=True),
+                       reps=20)
         plain_ms = events_ms(torch, lambda: flash_attention_plain(
             qq, kk, vv, causal=True))
         lib = events_ms(torch, lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=True, enable_gqa=True))
+            qq, kk, vv, is_causal=True, enable_gqa=True), reps=20)
         log(f"K5 {str(dtype)[6:]} causal q[{b},{h},{s},{dh}] "
-            f"kv[{b},{hkv},{s},{dh}] max_abs_err={err:.3e} ms={ms:.4f} "
+            f"kv[{b},{hkv},{s},{dh}] max_abs_err={err:.3e} "
+            f"bit_equal_share={bit_equal:.6f} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib:.4f}")
         if dtype == torch.bfloat16:
+            one = flash_attention_single_p_cuda(qq, kk, vv, causal=True)
+            one_err = float((one.float() - want.float()).abs().max())
+            one_ms = events_ms(torch, lambda: flash_attention_single_p_cuda(
+                qq, kk, vv, causal=True), reps=20)
+            ms2 = events_ms(torch, lambda: flash_attention_cuda(
+                qq, kk, vv, causal=True), reps=20)
+            log(f"K5 bfloat16 P as hi+lo ms={ms:.4f} / {ms2:.4f}, single "
+                f"bf16 P (timed only) ms={one_ms:.4f} max_abs_err="
+                f"{one_err:.3e}: the P_lo product costs "
+                f"{(ms + ms2) / 2 - one_ms:.4f} ms")
             n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
             flops = 4 * b * h * dh * s * (s + 1) / 2
-            bnd, by = bound_ms(n_bytes, flops, H100_FP32_FLOPS)
-            log(f"K5 bound {bnd:.4f} ms by {by} (FP32); bf16 tensor-core "
-                f"bound {flops / H100_BF16_FLOPS * 1e3:.4f} ms; bytes "
-                f"{n_bytes / H100_HBM_BYTES * 1e3:.4f} ms")
+            bnd, by = bound_ms(n_bytes, flops, H100_BF16_FLOPS)
+            log(f"K5 bound {bnd:.4f} ms by {by} (bf16 tensor cores; the "
+                f"split P's MMA work is 1.5x: "
+                f"{1.5 * flops / H100_BF16_FLOPS * 1e3:.4f} ms); FP32 bound "
+                f"{flops / H100_FP32_FLOPS * 1e3:.4f} ms; bytes "
+                f"{n_bytes / H100_HBM_BYTES * 1e3:.4f} ms; achieved "
+                f"{1.5 * flops / ms / 1e9:.1f} TFLOP/s of MMA work")
             rows["flash_attention"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=lib)
@@ -690,11 +831,12 @@ def main(argv=None) -> int:
         rows[name].update(source=src, replaces=rep)
 
     t0 = time.perf_counter()
-    ds, res, merged, split, launches = main_path(torch, args)
+    with k1_tally() as k1_shapes:
+        ds, res, merged, split, launches = main_path(torch, args)
     log(f"main path {time.perf_counter() - t0:.3f} s")
     for name, count in launches.items():
         rows[name]["launches"] = count
-    check_k1(torch, rows)
+    check_k1(torch, rows, k1_shapes)
     check_k2(torch, rows, ds, split)
     check_k4(torch, rows, ds, res)
     check_k3(torch, rows, ds, merged)

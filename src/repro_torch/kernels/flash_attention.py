@@ -5,9 +5,13 @@ token per row against a KV cache) and their plain versions.  Callers go
 through :mod:`repro_torch.kernels.ops`, which picks the plain version for a
 CPU tensor.
 
-Both kernels take f32 or bf16, compute in f32 (no tensor cores, no TF32),
+Both kernels take f32 or bf16, keep scores, probabilities and sums in f32,
 and mask their own ragged edges: no sequence length has to be a multiple
-of a tile.  Head dims 16, 32, 64 and 128 are built.
+of a tile.  Head dims 16, 32, 64 and 128 are built.  K5 in bf16 runs its
+products on the tensor cores (bf16 x bf16 -> f32, exact products) and
+multiplies V by P split into a bf16 hi + lo pair, so P keeps 16
+significant bits; K5 in f32 and K6 use FP32 FMAs only (no tensor cores, no
+TF32).
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from repro_torch.kernels.ref import decode_attention as flash_decode_plain
 from repro_torch.kernels.ref import mha_attention as flash_attention_plain
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
-           "flash_decode_cuda", "flash_decode_plain"]
+           "flash_attention_single_p_cuda", "flash_decode_cuda",
+           "flash_decode_plain"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may take on Hopper
@@ -35,7 +40,7 @@ _F = ctypes.c_float
 def _lib():
     lib = _build.library("attention")
     lib.repro_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _I, _F, _I, _I, _P]
+                                          _I, _F, _I, _I, _I, _P]
     lib.repro_flash_attention.restype = _I
     lib.repro_flash_decode.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _F, _I, _P]
@@ -77,10 +82,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return h, hkv, dh
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         scale: float | None = None) -> torch.Tensor:
-    """K5: q [B,H,S,Dh], k/v [B,Hkv,T,Dh] -> [B,H,S,Dh] in q's dtype."""
+def _prefill(q, k, v, causal, scale, split_p: bool) -> torch.Tensor:
     h, hkv, dh = _check(q, k, v, 4)
     b, s, t = q.shape[0], q.shape[2], k.shape[2]
     if b > 65535 or h > 65535:
@@ -95,9 +97,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
         s, t, dh, float(scale), int(causal), int(q.dtype == torch.bfloat16),
-        stream)
+        int(split_p), stream)
     _build.check(rc, "flash_attention")
     return out
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         scale: float | None = None) -> torch.Tensor:
+    """K5: q [B,H,S,Dh], k/v [B,Hkv,T,Dh] -> [B,H,S,Dh] in q's dtype."""
+    return _prefill(q, k, v, causal, scale, True)
+
+
+def flash_attention_single_p_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool = True,
+                                  scale: float | None = None) -> torch.Tensor:
+    """K5 in bf16 with P rounded once to bf16 (no P_lo product): a timing
+    yardstick for the price of the 16-bit P, never called by the port."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError("the single-P variant exists for bfloat16 only")
+    return _prefill(q, k, v, causal, scale, False)
 
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,

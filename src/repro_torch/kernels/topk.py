@@ -1,10 +1,16 @@
 """Exact kNN on the card (counterpart of ``repro/kernels/topk.py``): the
 wrapper of the CUDA kernel in ``csrc/knn.cu`` (K4) and its plain version.
-Callers go through :func:`repro_torch.kernels.ops.knn`."""
+Callers go through :func:`repro_torch.kernels.ops.knn`.
+
+K4 splits the N columns into spans across blocks; each block keeps a sorted
+(distance, index) top-k of its span, and a second kernel merges a row's
+span lists.  The wrapper allocates the scratch: the span lists and, for L2,
+the column norms."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -14,17 +20,18 @@ from repro_torch.kernels.ref import knn as knn_plain
 __all__ = ["KNN_MAX_K", "knn_cuda", "knn_plain"]
 
 KNN_MAX_K = 256
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may take on Hopper
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+@functools.cache
 def _lib():
     lib = _build.library("knn")
-    lib.repro_knn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.repro_knn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _P]
     lib.repro_knn.restype = _I
-    lib.repro_knn_smem.argtypes = [_I, _I]
-    lib.repro_knn_smem.restype = ctypes.c_size_t
+    lib.repro_knn_splits.argtypes = [_I, _I, _I, _I]
+    lib.repro_knn_splits.restype = _I
     return lib
 
 
@@ -49,16 +56,23 @@ def knn_cuda(q: torch.Tensor, x: torch.Tensor, k: int, metric: str = "l2"):
     if n >= 2**31:
         raise ValueError("too many points for int32 ids")
     lib = _lib()
-    if lib.repro_knn_smem(d, k) > _SMEM_LIMIT:
+    splits = lib.repro_knn_splits(m, n, d, k)
+    if splits == 0:
         raise ValueError(f"D={d} with k={k} exceeds the block's shared memory")
     out_d = torch.empty((m, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=q.device)
     if m == 0:
         return out_d, out_i
+    xn = torch.empty(n if metric == "l2" else 0, dtype=torch.float32,
+                     device=q.device)
+    parts = (splits, m, k) if splits > 1 else (0,)
+    part_d = torch.empty(parts, dtype=torch.float32, device=q.device)
+    part_i = torch.empty(parts, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.count("knn")
-    rc = lib.repro_knn(q.data_ptr(), x.data_ptr(), out_d.data_ptr(),
+    rc = lib.repro_knn(q.data_ptr(), x.data_ptr(), xn.data_ptr(),
+                       part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
                        out_i.data_ptr(), m, n, d, k, int(metric == "ip"),
-                       stream)
+                       splits, stream)
     _build.check(rc, "knn")
     return out_d, out_i

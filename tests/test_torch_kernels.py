@@ -26,6 +26,7 @@ from repro.search import jax_backend as jb
 from repro.search.types import QuantSpec as JQuantSpec
 from repro_torch.kernels import beam as tbeam
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.search.types import QuantSpec, _to_bf16
 
 N, D, R, Q = 500, 24, 10, 17
@@ -85,6 +86,60 @@ def test_knn_matches_reference(fix, metric):
     data, _, _, queries = fix
     wd, wi = jops.knn(jnp.asarray(queries), jnp.asarray(data), 12, metric)
     gd, gi = tops.knn(_t(queries), _t(data), 12, metric)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5,
+                               atol=1e-4)
+
+
+def _split_knn(dist: torch.Tensor, k: int, splits: int, tile: int = 16,
+               cap: int = 16):
+    """K4's decomposition of a top-k over the rows of ``dist``: each of
+    ``splits`` column spans walks its columns in tiles, admits d <= tau (the
+    k-th listed distance, +inf until the list holds k) into a buffer of
+    ``cap`` entries, and merges buffer and list when a tile would overflow
+    it and at the end; then the span lists merge.  Every sort is of
+    (distance, index) tuples, i.e. lexicographic."""
+    inf = float("inf")
+    n = dist.shape[1]
+    span = -(-n // splits)
+    out_d, out_i = [], []
+    for row in dist.tolist():
+        merged = []
+        for lo in range(0, n, span):
+            hi = min(n, lo + span)
+            listed, buf, tau = [], [], inf
+            for c0 in range(lo, hi, tile):
+                pairs = [(row[c], c) for c in range(c0, min(hi, c0 + tile))]
+                if len(buf) + sum(d <= tau for d, _ in pairs) > cap:
+                    listed, buf = sorted(listed + buf)[:k], []
+                    tau = listed[-1][0] if len(listed) == k else inf
+                buf += [p for p in pairs if p[0] <= tau]
+            merged += sorted(listed + buf)[:k]
+        best = sorted(merged)[:k]
+        best += [(inf, -1)] * (k - len(best))
+        out_d.append([d for d, _ in best])
+        out_i.append([i for _, i in best])
+    return torch.tensor(out_d), torch.tensor(out_i)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 9])
+@pytest.mark.parametrize("kind,metric", [("ties", "l2"), ("ties", "ip"),
+                                         ("random", "l2")])
+def test_split_knn_decomposition_matches_reference(kind, metric, splits):
+    """K4's split-N, threshold-filtered decomposition keeps the reference's
+    (distance, index) order exactly, ties included, whatever the split:
+    the argument of ``csrc/knn.cu`` run in torch ops on the CPU."""
+    rng = np.random.default_rng(11)
+    if kind == "ties":  # integer coordinates, every point twice: exact f32
+        x = rng.integers(0, 3, (200, 8)).astype(np.float32)
+        x = np.concatenate([x, x])
+    else:
+        x = rng.standard_normal((400, 8)).astype(np.float32)
+    q = x[::37].copy()
+    k = 60  # more than a span holds when splits = 9
+    wd, wi = jops.knn(jnp.asarray(q), jnp.asarray(x), k, metric)
+    gd, gi = _split_knn(tref.pairwise_distance(_t(q), _t(x), metric), k,
+                        splits)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5,
                                atol=1e-4)
