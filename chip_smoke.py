@@ -20,8 +20,11 @@
    (f32-exact distances, ids equal), at ragged N, k > N, k = 1, k = 256,
    IP and ground truth's last block (1808 x 1M, k=10), then at one shard's
    shape with k=129 beside cdist + topk; K3 on the built merged graph for
-   256 queries in f32, bf16 and uint8 (uint8 ids and counters exact).
-   Times come from CUDA events.
+   256 queries and for the merged search's own 10,000-query launch, in f32,
+   bf16 and uint8 (the uint8 traversal's ids and counters exact; the f32
+   re-rank after it to near-ties), with its resident blocks per SM, then at
+   every launch shape of the main path on that launch's own inputs (time
+   and bound summed by range of Q).  Times come from CUDA events.
 4. A small index searched on the card and on the CPU's plain path: the
    same ids and stats (uint8 exact).
 5. LM main path, counters zeroed just before and read just after:
@@ -37,10 +40,15 @@
    non-causal, S < T and GQA groups 1 and 8 (with the share of outputs
    bit-equal to the plain version), then at q [8,32,1024,64], k/v
    [8,4,1024,64] in bf16 (also timed with a single bf16 P, to price the
-   hi + lo split) and f32 (1e-5); K6 at q [8,32,64] against a
-   [8,4,2048,64] cache with the main path's longest length (f32, 1e-5;
-   bf16, 8e-3) and with ragged lengths (bf16, 8e-3).  SDPA is timed as the
-   yardstick.
+   hi + lo split) and f32 (1e-5); K6 in f32 (1e-5) and bf16 (8e-3) at
+   lengths on and around its chunk edges (0 included) at the LM shape,
+   head dims 16/32/128 and GQA groups 1, 8 and 32, then at q [8,32,64]
+   against a [8,4,2048,64] cache with the main path's longest length and
+   with every row full, timed from CUDA graphs of 50 launches (a call's
+   Python path takes longer than the kernel) and per call with the host
+   included.  SDPA is timed as the yardstick.  K6's scratch, kept per
+   stream: grown between launches back to back, used by a captured CUDA
+   graph on new inputs, and refused when a capture would need more.
 7. The small TinyLlama config in f32, prefill and 4 decode steps on the
    card and on the CPU's plain path: logits to 1e-4, greedy tokens equal.
 
@@ -100,6 +108,32 @@ def events_ms(torch, fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int = 50) -> float:
+    """Device time of ``fn`` from a CUDA graph of ``reps`` calls, replayed
+    twice after a warm-up on the capturing stream: the host's work per call
+    drops out, so a kernel of a few microseconds is timed and not the
+    Python path that launches it."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (2 * reps)
+
+
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / H100_HBM_BYTES * 1e3
     t_ops = n_ops / peak_ops * 1e3
@@ -112,6 +146,7 @@ def environment(torch):
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
+    log(f"card {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
@@ -399,69 +434,191 @@ def check_k4(torch, rows, ds, res):
         f"{t_opt:.3f} s")
 
 
+@contextlib.contextmanager
+def k3_tally():
+    """Tally K3's launches by (Q, dtype, k, re-rank) while the block runs,
+    beside (not instead of) its launch counter, and keep the first launch
+    of each shape's inputs so it can be timed after the run."""
+    from repro_torch.kernels import beam
+
+    shapes: collections.Counter = collections.Counter()
+    first: dict = {}
+    launch = beam.fused_beam_cuda
+
+    def tallied(x, graph, entries, queries, k, **kw):
+        key = (queries.shape[0], str(x.dtype)[6:], k, kw.get("rerank_k"))
+        shapes[key] += 1
+        first.setdefault(key, ((x, graph, entries, queries, k), kw))
+        return launch(x, graph, entries, queries, k, **kw)
+
+    beam.fused_beam_cuda = tallied
+    try:
+        yield shapes, first
+    finally:
+        beam.fused_beam_cuda = launch
+    log(f"K3 main-path launches by (Q, dtype, k, rerank_k): "
+        f"{dict(shapes.most_common())}")
+
+
+def k3_by_q(torch, shapes, first):
+    """K3 at every launch shape of the main path, on the inputs of its
+    first launch there (the graph, data and queries that launch had):
+    time, bound by bytes, and launches × time summed by range of Q."""
+    from repro_torch.kernels import beam
+
+    buckets: dict = {}
+    for key, n in sorted(shapes.items(),
+                         key=lambda kv: (*kv[0][:3], kv[0][3] or 0)):
+        args, kw = first[key]
+        out = beam.fused_beam_cuda(*args, **kw)
+        ms = events_ms(torch, lambda: beam.fused_beam_cuda(*args, **kw),
+                       reps=3)
+        x, graph, _, q, _ = args
+        nd, hops, nrr = (int(t.sum()) for t in out[2:])
+        dx = kw["x_exact"].shape[1] if kw.get("rerank_k") else 0
+        n_bytes = (nd * x.shape[1] * x.element_size()
+                   + hops * graph.shape[1] * 4 + nrr * dx * 4
+                   + q.numel() * q.element_size())
+        b, _ = bound_ms(n_bytes, 2 * nd * x.shape[1], H100_FP32_FLOPS)
+        q_n = key[0]
+        rng = ("Q <= 64" if q_n <= 64 else "64 < Q <= 512" if q_n <= 512
+               else "512 < Q <= 2560" if q_n <= 2560 else f"Q = {q_n}")
+        acc = buckets.setdefault(rng, [0, 0.0, 0.0])
+        acc[0] += n
+        acc[1] += n * ms
+        acc[2] += n * b
+        log(f"K3 shape Q={q_n} {key[1]} k={key[2]} rerank={key[3]} "
+            f"launches={n} ms={ms:.4f} bound_ms={b:.4f}")
+    for rng, (n, t, b) in buckets.items():
+        log(f"K3 main path {rng}: launches={n} sum_ms={t:.3f} "
+            f"sum_bound_ms={b:.3f}")
+    total = sum(t for _, t, _ in buckets.values())
+    log(f"K3 main path: launches={sum(n for n, _, _ in buckets.values())} "
+        f"sum_ms={total:.3f} sum_bound_ms="
+        f"{sum(b for _, _, b in buckets.values()):.3f}")
+
+
+def plain_beam(torch, prep, entries, q, qf, kq, kw):
+    """K3's plain version in slices of 2000 queries: each query is
+    independent, and the plain version's visited mask is [Q, N] booleans."""
+    from repro_torch.kernels import beam
+
+    parts = []
+    for lo in range(0, q.shape[0], 2000):
+        kws = dict(kw)
+        if "q_exact" in kws:
+            kws["q_exact"] = qf[lo:lo + 2000]
+        parts.append(beam.fused_beam_plain(prep.x, prep.graph, entries,
+                                           q[lo:lo + 2000], kq, **kws))
+    return [torch.cat(c) for c in zip(*parts)]
+
+
 def check_k3(torch, rows, ds, merged):
+    """K3 on the built merged graph against its plain version, at 256
+    queries and at the merged search's own launch (every query), in f32,
+    bf16 and uint8 (uint8 ids and counters exact), each timed beside its
+    bound by bytes."""
     import numpy as np
 
     from repro_torch.kernels import beam
     from repro_torch.search.fused_backend import _prep_queries, _prepared
 
-    queries = ds.queries[:256]
     entries = torch.from_numpy(
         merged.index.entry_points(16).astype(np.int32)).cuda()
     exact = _prepared(merged.data, merged.index.graph, None,
                       torch.device("cuda"))
-    qf = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).cuda()
-    for dtype in ("f32", "bf16", "uint8"):
-        if dtype == "f32":
-            store, quant = merged.data, None
-            extra, kq = {}, 10
-        else:
-            store, spec = merged.quant_view(dtype)
-            quant = spec if spec is not None else dtype
-            extra, kq = dict(x_exact=exact.x, q_exact=qf, rerank_k=10), 40
-        prep = _prepared(store, merged.index.graph, quant,
-                         torch.device("cuda"))
-        q, scale, zp = _prep_queries(queries, quant, torch.device("cuda"))
-        kw = dict(width=64, n_iters=beam.default_n_iters(64), expand=8,
-                  metric="l2", scale=scale, zp=zp, **extra)
-        got = beam.fused_beam_cuda(prep.x, prep.graph, entries, q, kq,
-                                   aux=prep.aux, **kw)
-        want = beam.fused_beam_plain(prep.x, prep.graph, entries, q, kq, **kw)
-        ids_eq = float((got[0] == want[0]).float().mean())
-        stats_eq = float(((got[2] == want[2]) & (got[3] == want[3])
-                          & (got[4] == want[4])).float().mean())
-        same = got[0] == want[0]
-        fin = torch.isfinite(want[1]) & same
-        err = float((got[1] - want[1])[fin].abs().max()) if fin.any() else 0.0
-        ms = events_ms(torch, lambda: beam.fused_beam_cuda(
-            prep.x, prep.graph, entries, q, kq, aux=prep.aux, **kw), reps=3)
-        t0 = time.perf_counter()
-        beam.fused_beam_plain(prep.x, prep.graph, entries, q, kq, **kw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        nd, hops, nrr = (int(t.sum()) for t in got[2:])
-        itemsize = prep.x.element_size()
-        d, r = prep.x.shape[1], prep.graph.shape[1]
-        n_bytes = (nd * d * itemsize + hops * r * 4 + nrr * d * 4
-                   + q.numel() * q.element_size())
-        b, by = bound_ms(n_bytes, 2 * nd * d, H100_FP32_FLOPS)
-        log(f"K3 fused_beam {dtype} Q=256 N={prep.x.shape[0]} width=64 "
-            f"k={kq} rerank={'10' if extra else '-'} id_agreement={ids_eq:.6f} "
-            f"stats_agreement={stats_eq:.6f} max_abs_err={err:.3e} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.1f} bound_ms={b:.4f} "
-            f"(n_dist={nd} hops={hops} n_rerank={nrr})")
-        if dtype == "uint8":
-            need(ids_eq == 1.0 and stats_eq == 1.0,
-                 "K3 uint8 ids/stats are not bit-exact")
-        else:
-            need(ids_eq >= 0.99 and stats_eq >= 0.95,
-                 f"K3 {dtype} disagrees beyond near-ties")
-            need(err <= 2e-3 + 1e-4 * float(want[1][fin].abs().max()),
-                 f"K3 {dtype} distances disagree")
-        if dtype == "f32":
-            rows["fused_beam"].update(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, bound_ms=b,
-                                      bound_by=by, library_ms=None)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for nq in (256, len(ds.queries)):
+        queries = ds.queries[:nq]
+        qf = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).cuda()
+        for dtype in ("f32", "bf16", "uint8"):
+            if dtype == "f32":
+                store, quant = merged.data, None
+                extra, kq = {}, 10
+            else:
+                store, spec = merged.quant_view(dtype)
+                quant = spec if spec is not None else dtype
+                extra, kq = dict(x_exact=exact.x, q_exact=qf, rerank_k=10), 40
+            prep = _prepared(store, merged.index.graph, quant,
+                             torch.device("cuda"))
+            q, scale, zp = _prep_queries(queries, quant, torch.device("cuda"))
+            kw = dict(width=64, n_iters=beam.default_n_iters(64), expand=8,
+                      metric="l2", scale=scale, zp=zp, **extra)
+            got = beam.fused_beam_cuda(prep.x, prep.graph, entries, q, kq,
+                                       aux=prep.aux, **kw)
+            t0 = time.perf_counter()
+            want = plain_beam(torch, prep, entries, q, qf, kq, kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            ids_eq = float((got[0] == want[0]).float().mean())
+            stats_eq = float(((got[2] == want[2]) & (got[3] == want[3])
+                              & (got[4] == want[4])).float().mean())
+            same = got[0] == want[0]
+            fin = torch.isfinite(want[1]) & same
+            err = float((got[1] - want[1])[fin].abs().max()) if fin.any() \
+                else 0.0
+            ms = events_ms(torch, lambda: beam.fused_beam_cuda(
+                prep.x, prep.graph, entries, q, kq, aux=prep.aux, **kw),
+                reps=3)
+            nd, hops, nrr = (int(t.sum()) for t in got[2:])
+            itemsize = prep.x.element_size()
+            d, r = prep.x.shape[1], prep.graph.shape[1]
+            n_bytes = (nd * d * itemsize + hops * r * 4 + nrr * d * 4
+                       + q.numel() * q.element_size())
+            b, by = bound_ms(n_bytes, 2 * nd * d, H100_FP32_FLOPS)
+            log(f"K3 fused_beam {dtype} Q={nq} N={prep.x.shape[0]} width=64 "
+                f"k={kq} rerank={'10' if extra else '-'} "
+                f"id_agreement={ids_eq:.6f} stats_agreement={stats_eq:.6f} "
+                f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.1f} "
+                f"bound_ms={b:.4f} ({by}) share_of_bound={b / ms:.3f} "
+                f"(n_dist={nd} hops={hops} n_rerank={nrr})")
+            if dtype == "uint8":
+                # the traversal is integer-exact: its candidates and
+                # counters equal the plain version's bit for bit; the f32
+                # re-rank after it sums in another order, so its ids may
+                # differ at near-ties of the exact distance
+                trav = {k_: v_ for k_, v_ in kw.items()
+                        if k_ not in ("x_exact", "q_exact", "rerank_k")}
+                tg = beam.fused_beam_cuda(prep.x, prep.graph, entries, q, kq,
+                                          aux=prep.aux, **trav)
+                tw = plain_beam(torch, prep, entries, q, qf, kq, trav)
+                exact_trav = all(torch.equal(a, b) for a, b in
+                                 zip((tg[0], tg[2], tg[3]),
+                                     (tw[0], tw[2], tw[3])))
+                bad = near_ties(torch, qf, exact.x, got[0], want[0], 1e-5)
+                log(f"K3 uint8 Q={nq}: traversal (k={kq}, no re-rank) ids "
+                    f"and counters bit-exact={exact_trav}; re-ranked ids "
+                    f"differing beyond a 1e-5 near-tie: {bad}")
+                need(exact_trav, f"K3 uint8 Q={nq} traversal is not "
+                     "bit-exact")
+                need(stats_eq == 1.0 and bad == 0,
+                     f"K3 uint8 Q={nq} re-rank disagrees beyond near-ties")
+                if nq == 256:
+                    need(ids_eq == 1.0, "K3 uint8 Q=256 ids are not "
+                         "bit-exact")
+                del tg, tw
+            else:
+                need(ids_eq >= 0.99 and stats_eq >= 0.95,
+                     f"K3 {dtype} Q={nq} disagrees beyond near-ties")
+                need(err <= 2e-3 + 1e-4 * float(want[1][fin].abs().max()),
+                     f"K3 {dtype} Q={nq} distances disagree")
+            if dtype == "f32" and nq == 256:
+                rows["fused_beam"].update(max_abs_err=err, ms=ms,
+                                          plain_ms=plain_ms, bound_ms=b,
+                                          bound_by=by, library_ms=None)
+            if dtype == "f32":
+                occ = beam.fused_beam_occupancy(
+                    prep.x, prep.graph.shape[1], entries.shape[0], nq=nq,
+                    width=64, n_iters=kw["n_iters"], expand=8, metric="l2")
+                log(f"K3 f32 Q={nq}: {occ['smem_bytes']} bytes of shared "
+                    f"memory a block, {occ['blocks_per_sm']} blocks resident "
+                    f"per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+                    f"{occ['blocks_per_sm'] * n_sm} queries in flight")
+                # a launch of more queries than fit two to an SM keeps four
+                need(nq <= 2 * n_sm or occ["blocks_per_sm"] >= 4,
+                     f"K3 keeps fewer than 4 queries resident per SM at "
+                     f"Q={nq}")
+            del got, want
 
 
 def check_small_against_cpu(torch):
@@ -705,13 +862,52 @@ def check_k5(torch, rows, waves):
 
 
 def check_k6(torch, rows, longest: int):
+    """K6 against its plain version: f32 (1e-5) and bf16 (8e-3) at lengths
+    on and around its chunk edges (a row of length 0 included), at head
+    dims 16/32/128 and GQA groups 1, 8 and 32; then at the LM path's shape
+    (q [8,32,64], cache [8,4,2048,64]) with the path's longest length and
+    with every row full, timed beside SDPA."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_decode_cuda,
+    from repro_torch.kernels.flash_attention import (decode_plan,
+                                                     flash_decode_cuda,
                                                      flash_decode_plain)
 
-    b, h, hkv, t, dh = 8, 32, 4, 2048, 64
     g = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    # (name, b, h, hkv, t, dh)
+    cases = [("LM shape", 8, 32, 4, 2048, 64),
+             ("head_dim 16", 8, 8, 2, 1000, 16),
+             ("head_dim 32", 8, 8, 2, 1000, 32),
+             ("head_dim 128", 8, 16, 2, 1000, 128),
+             ("GQA group 1", 8, 8, 8, 700, 64),
+             ("GQA group 8", 8, 16, 2, 700, 128),
+             ("GQA group 32", 8, 32, 1, 700, 64)]
+    for name, b, h, hkv, t, dh in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            chunk, n_split = decode_plan(b, hkv, t, dh, dtype.itemsize)
+            lens_list = [0, 1, 63, 64, 65, chunk - 1, chunk, chunk + 1]
+            lens_list = [min(n, t) for n in lens_list]
+            lens_list[-1] = t
+            lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+            q, kc, vc = (rand(b, h, dh, dtype=dtype),
+                         rand(b, hkv, t, dh, dtype=dtype),
+                         rand(b, hkv, t, dh, dtype=dtype))
+            got = flash_decode_cuda(q, kc, vc, lens)
+            want = flash_decode_plain(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            err = allclose_err(torch, got, want, TOL[str(dtype)[6:]])
+            need(bool((got[0] == 0).all()), "K6: a row of length 0 is not 0")
+            log(f"K6 {str(dtype)[6:]} {name} q[{b},{h},{dh}] "
+                f"cache[{b},{hkv},{t},{dh}] chunk={chunk} splits={n_split} "
+                f"lens={lens_list} max_abs_err={err:.3e}")
+            del q, kc, vc, got, want
+
+    b, h, hkv, t, dh = 8, 32, 4, 2048, 64
+    chunk, n_split = decode_plan(b, hkv, t, dh, 2)
     q32 = torch.randn(b, h, dh, device="cuda", generator=g)
     kc32 = torch.randn(b, hkv, t, dh, device="cuda", generator=g)
     vc32 = torch.randn(b, hkv, t, dh, device="cuda", generator=g)
@@ -723,33 +919,107 @@ def check_k6(torch, rows, longest: int):
         f"lens={longest} max_abs_err={err:.3e}")
     q, kc, vc = q32.bfloat16(), kc32.bfloat16(), vc32.bfloat16()
     del q32, kc32, vc32
-    cases = (("main", [longest] * b),
-             ("ragged", [1, 63, 64, 65, 1000, 1087, 2047, 2048]))
-    for name, lens_list in cases:
+    for name, fill in (("main", longest), ("full", t)):
+        lens_list = [fill] * b
         lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
         got = flash_decode_cuda(q, kc, vc, lens)
         want = flash_decode_plain(q, kc, vc, lens)
         torch.cuda.synchronize()
         err = allclose_err(torch, got, want, TOL["bfloat16"])
-        ms = events_ms(torch, lambda: flash_decode_cuda(q, kc, vc, lens),
-                       reps=20)
+
+        def k6():
+            return flash_decode_cuda(q, kc, vc, lens)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :],
+                enable_gqa=True)
+
+        mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+        ms = graph_ms(torch, k6)
+        lib = graph_ms(torch, sdpa)
+        ms2 = graph_ms(torch, k6)
+        call_ms = events_ms(torch, k6, reps=50)
         plain_ms = events_ms(torch, lambda: flash_decode_plain(q, kc, vc,
                                                                lens))
-        mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
-        lib = events_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :],
-            enable_gqa=True), reps=20)
         total = sum(lens_list)
         n_bytes = 2 * (2 * hkv * total * dh) + 2 * 2 * q.numel()
         bnd, by = bound_ms(n_bytes, 4 * h * dh * total, H100_FP32_FLOPS)
         log(f"K6 bf16 {name} q[{b},{h},{dh}] cache[{b},{hkv},{t},{dh}] "
-            f"lens={lens_list} max_abs_err={err:.3e} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} sdpa_ms={lib:.4f} "
+            f"chunk={chunk} splits={n_split} lens={fill} "
+            f"max_abs_err={err:.3e} ms={ms:.5f} / {ms2:.5f} (CUDA graph "
+            f"of 50 launches) per_call_ms={call_ms:.5f} (host included) "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={lib:.5f} (CUDA graph) "
             f"bound_ms={bnd:.5f} ({by})")
         if name == "main":
             rows["flash_decode"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=lib)
+
+
+def check_k6_scratch(torch):
+    """K6's scratch, kept per stream and grown on demand: launches of a
+    small, a large and the small shape again, back to back with no wait,
+    each against the plain version (f32, 1e-5); a launch captured in a CUDA
+    graph and replayed on new inputs, then an eager launch after it; and a
+    capture that would need new scratch, which must raise."""
+    from repro_torch.kernels.flash_attention import (flash_decode_cuda,
+                                                     flash_decode_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def inputs(b, h, hkv, t, dh):
+        return (torch.randn(b, h, dh, device="cuda", generator=g),
+                torch.randn(b, hkv, t, dh, device="cuda", generator=g),
+                torch.randn(b, hkv, t, dh, device="cuda", generator=g),
+                torch.randint(0, t + 1, (b,), device="cuda", generator=g,
+                              dtype=torch.int32))
+
+    small, large = (2, 8, 2, 300, 64), (8, 32, 4, 2048, 64)
+    cases = [inputs(*shape) for shape in (small, large, small)]
+    got = [flash_decode_cuda(*c) for c in cases]
+    torch.cuda.synchronize()
+    err = max(allclose_err(torch, o, flash_decode_plain(*c), TOL["float32"])
+              for o, c in zip(got, cases))
+    log(f"K6 scratch: small, large, small back to back max_abs_err={err:.3e}")
+
+    q, kc, vc, lens = inputs(*large)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        flash_decode_cuda(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = flash_decode_cuda(q, kc, vc, lens)
+    errs = []
+    for _ in range(2):
+        fresh = inputs(*large)
+        for dst, src in zip((q, kc, vc, lens), fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        errs.append(allclose_err(torch, out, flash_decode_plain(q, kc, vc,
+                                                                lens),
+                                 TOL["float32"]))
+    errs.append(allclose_err(torch, flash_decode_cuda(q, kc, vc, lens),
+                             flash_decode_plain(q, kc, vc, lens),
+                             TOL["float32"]))
+    log(f"K6 scratch: CUDA graph replays on new inputs, then eager, "
+        f"max_abs_err={max(errs):.3e}")
+
+    # 32 rows x 4 KV heads: more tickets than any launch so far has needed
+    q, kc, vc, lens = inputs(32, 8, 4, 256, 64)
+    raised = False
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(),
+                              stream=torch.cuda.Stream()):
+            flash_decode_cuda(q, kc, vc, lens)
+    except RuntimeError as e:
+        raised = "captured" in str(e)
+    torch.cuda.synchronize()
+    log(f"K6 scratch: a capture that needs new scratch raises={raised}")
+    need(raised, "K6 made scratch while a CUDA graph was being captured")
 
 
 def check_small_lm_against_cpu(torch):
@@ -831,7 +1101,7 @@ def main(argv=None) -> int:
         rows[name].update(source=src, replaces=rep)
 
     t0 = time.perf_counter()
-    with k1_tally() as k1_shapes:
+    with k1_tally() as k1_shapes, k3_tally() as (k3_shapes, k3_first):
         ds, res, merged, split, launches = main_path(torch, args)
     log(f"main path {time.perf_counter() - t0:.3f} s")
     for name, count in launches.items():
@@ -840,6 +1110,8 @@ def main(argv=None) -> int:
     check_k2(torch, rows, ds, split)
     check_k4(torch, rows, ds, res)
     check_k3(torch, rows, ds, merged)
+    k3_by_q(torch, k3_shapes, k3_first)
+    del k3_first
     check_small_against_cpu(torch)
     t0 = time.perf_counter()
     lm_launches, longest, engine = lm_path(torch)
@@ -850,6 +1122,7 @@ def main(argv=None) -> int:
     del engine
     check_k5(torch, rows, waves)
     check_k6(torch, rows, longest)
+    check_k6_scratch(torch)
     check_small_lm_against_cpu(torch)
     log(f"LM phases {time.perf_counter() - t0:.3f} s")
     log(f"total {time.perf_counter() - t_start:.3f} s")

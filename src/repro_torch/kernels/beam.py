@@ -19,6 +19,8 @@ last occurrence; keep the best ``width`` of candidates + fresh neighbours by
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 
 import torch
 
@@ -26,7 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import topk_smallest
 
 __all__ = ["DEFAULT_EXPAND", "beam_aux", "default_n_iters", "fused_beam",
-           "fused_beam_cuda", "fused_beam_plain"]
+           "fused_beam_cuda", "fused_beam_occupancy", "fused_beam_plain"]
 
 DEFAULT_EXPAND = 8
 _I32_MAX = 2**31 - 1
@@ -41,10 +43,6 @@ _F = ctypes.c_float
 def default_n_iters(width: int) -> int:
     """Total node-expansion budget matched to the candidate-list size."""
     return width + width // 2
-
-
-def _pow2(v: int) -> int:
-    return 1 << max(0, (int(v) - 1).bit_length())
 
 
 def _lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
@@ -199,6 +197,7 @@ def beam_aux(x: torch.Tensor):
     return (xf * xf).sum(dim=1), empty_i, empty_i
 
 
+@functools.cache
 def _lib():
     lib = _build.library("beam")
     lib.repro_fused_beam.argtypes = (
@@ -206,7 +205,60 @@ def _lib():
     lib.repro_fused_beam.restype = _I
     lib.repro_beam_smem.argtypes = [_I] * 6
     lib.repro_beam_smem.restype = ctypes.c_size_t
+    lib.repro_beam_occupancy.argtypes = [_I, _I, _I, _I, ctypes.c_size_t]
+    lib.repro_beam_occupancy.restype = _I
     return lib
+
+
+def _layout(d: int, width: int, r: int, ne: int, n_iters: int,
+            expand: int) -> tuple[int, int, int, int]:
+    """(hash_log2, wave_log2, slots, shared-memory bytes) of one block."""
+    nn_ = expand * r
+    # The visited hash is exact as long as it never fills: a query inserts
+    # at most E + (n_iters + expand) * R ids, so the power of two above
+    # that always keeps an empty slot (8192 slots for 6720 ids at width 64,
+    # R 64, expand 8: four queries resident per SM).
+    hash_log2 = max(1, (ne + (n_iters + expand) * r).bit_length())
+    wave_log2 = max(1, (2 * nn_ - 1).bit_length())
+    slots = max(nn_, width)  # a trip's survivors, or the re-rank keys
+    smem = _lib().repro_beam_smem(d, width, nn_, slots, hash_log2,
+                                  wave_log2)
+    return hash_log2, wave_log2, slots, smem
+
+
+def fused_beam_occupancy(x: torch.Tensor, r: int, ne: int, *, nq: int,
+                         width: int, n_iters: int, expand: int,
+                         metric: str) -> dict:
+    """K3's shared memory per block and the resident blocks (queries) per
+    SM of the kernel a launch of ``nq`` queries takes, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    stage = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}[x.dtype]
+    d = x.shape[1]
+    *_, smem = _layout(d, width, r, ne, n_iters, expand)
+    vec = (d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+    blocks = _lib().repro_beam_occupancy(stage, int(metric == "ip"),
+                                         int(vec), nq, smem)
+    _build.check(min(blocks, 0), "fused_beam occupancy")
+    return {"smem_bytes": int(smem), "blocks_per_sm": int(blocks)}
+
+
+# tensors whose ids were found in range: id -> (weak ref, version, lo, n)
+_CHECKED: dict[int, tuple] = {}
+
+
+def _ids_in_range(t: torch.Tensor, lo: int, n: int) -> bool:
+    """Whether every id of ``t`` lies in [lo, n).  A check reads the whole
+    tensor and waits for the card, so a tensor found in range is not read
+    again until it changes in place (its version moves)."""
+    key = id(t)
+    hit = _CHECKED.get(key)
+    if hit is not None and hit[0]() is t and hit[1:] == (t._version, lo, n):
+        return True
+    if t.numel() and (int(t.min()) < lo or int(t.max()) >= n):
+        return False
+    _CHECKED[key] = (weakref.ref(t, lambda _, k=key: _CHECKED.pop(k, None)),
+                     t._version, lo, n)
+    return True
 
 
 def _contig(t: torch.Tensor, dtype, dev, name: str) -> None:
@@ -244,16 +296,11 @@ def fused_beam_cuda(x, graph, entries, queries, k: int, *, width: int,
                          f"E={ne}, k={k}, width={width}, expand={expand}")
     if n == 0 or n >= 2**31 - 1:
         raise ValueError(f"unsupported point count {n}")
-    lo = torch.stack([graph.min(), entries.min()]).min()
-    hi = torch.stack([graph.max(), entries.max()]).max()
-    if int(lo) < -1 or int(hi) >= n or int(entries.min()) < 0:
+    if not (_ids_in_range(graph, -1, n) and _ids_in_range(entries, 0, n)):
         raise ValueError("graph or entry ids out of range")
-    nn_ = expand * r
-    hash_log2 = max(1, (2 * (ne + (n_iters + expand) * r) - 1).bit_length())
-    wave_log2 = max(1, (2 * nn_ - 1).bit_length())
-    pad_pow2 = _pow2(max(nn_, width))  # also holds the re-rank keys
     lib = _lib()
-    smem = lib.repro_beam_smem(d, width, nn_, pad_pow2, hash_log2, wave_log2)
+    hash_log2, wave_log2, slots, smem = _layout(d, width, r, ne, n_iters,
+                                                   expand)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"the exact visited set needs {smem} bytes of shared memory "
@@ -287,7 +334,7 @@ def fused_beam_cuda(x, graph, entries, queries, k: int, *, width: int,
         counters[1].data_ptr(), counters[2].data_ptr(),
         n, d, r, ne, nq, width, k, 0 if rerank_k is None else rerank_k,
         n_iters, expand, dx, int(metric == "ip"), stage,
-        float(scale), float(zp), hash_log2, wave_log2, pad_pow2, stream)
+        float(scale), float(zp), hash_log2, wave_log2, slots, stream)
     _build.check(rc, "fused_beam")
     return out_ids, out_d, counters[0], counters[1], counters[2]
 

@@ -62,13 +62,30 @@
 // output, so the row statistics reduce across a half-warp with shuffles.
 // Shared rows are padded by 4 floats so the float4 reads hit distinct banks.
 //
-// K6: bound by the bytes of K and V up to cache_len (3.35 TB/s).  One block
-// per (batch row, KV head) serves that head's whole GQA group, so each
-// cached K/V row is read from device memory once for the group; the block
-// walks the cache in 64-key tiles up to cache_len[b] (clamped to T), one
-// warp per query head keeps that head's softmax state.  With B*Hkv blocks
-// (32 at B=8, Hkv=4 on 132 SMs) K6 is latency-bound; splitting the cache
-// across blocks with a combining pass is the later redesign.
+// K6 (flash_decode_split): bound by the bytes of K and V up to cache_len
+// (3.35 TB/s); about one FLOP a byte at GQA group 8, so FP32 FMAs, not the
+// tensor cores.  One block per (KV head, batch row, split) serves the whole
+// GQA group, so each cached K/V row is read from device memory once per
+// group.  The splits cut the cache into chunks of `chunk` keys (a multiple
+// of 64) chosen by the host from T alone, never from cache_len, which stays
+// on the card: at 8 rows x 4 KV heads x T 2048, 16 chunks of 128 keys, 512
+// blocks, of which those whose chunk starts below cache_len[b] work and the
+// rest return at once.  A block of 256 threads stages its chunk's K and V
+// in shared memory with 16-byte cp.async copies (V lands while the scores
+// are computed; rows padded by 16 bytes so the per-key row reads hit
+// distinct banks), scores each key on 256 / chunk threads that split its
+// group's heads, takes the chunk's softmax one warp per head with
+// shuffles, and forms P.V one (head, column pair) per thread: three
+// barriers a chunk.  A lone active chunk writes the output; otherwise every
+// active block writes (m, l, acc) in f32 to scratch, and the last to
+// finish, by an atomic ticket per (row, KV head) after a __threadfence,
+// stages all the partials into its shared memory in one round of 16-byte
+// copies (in batches, should they not fit) and combines them in split
+// order: the new max, each split's weight, then acc and l; it clamps the
+// denominator at 1e-30 once and rounds once.  It then puts the ticket back
+// to 0, so a launch needs no memset and the scratch stays valid under a
+// CUDA graph; launches that share scratch must run in order (the wrapper
+// keeps one per stream).  cache_len 0 gives 0 (split 0 writes it).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,7 +96,6 @@ namespace {
 constexpr int TQ = 64;       // queries per K5 block
 constexpr int TK = 64;       // keys per shared-memory tile
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 4;       // floats of padding per shared row
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -538,93 +554,262 @@ flash_prefill_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 }
 
 // ---------------------------------------------------------------------------
-// K6: one query token per row against a KV cache
+// K6: one query token per row against a KV cache, split over the cache
 // ---------------------------------------------------------------------------
 
-template <int DH>
-size_t decode_smem_floats(int group) {
-  return (size_t)group * (DH + PAD) + TK * (DH + PAD) + TK * DH + group * TK
-         + group * DH + 3 * group;
+constexpr int DEC_THREADS = 256;
+constexpr int DEC_HB = 8;  // heads one thread scores per pass over a key
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// 16 bytes of a K row in shared memory -> f32
+__device__ __forceinline__ void load16_f32(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void load16_f32(const __nv_bfloat16* p, float (&o)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    o[2 * i] = __low2float(h);
+    o[2 * i + 1] = __high2float(h);
+  }
+}
+// two neighbouring elements of a V row in shared memory -> f32
+__device__ __forceinline__ float2 load2_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Floats of one split's partial: acc [group][DH], then m [group] and
+// l [group], padded to 16 bytes so the partials copy in 16-byte units.
+__host__ __device__ constexpr int dec_stride(int group, int dh) {
+  return (group * (dh + 2) + 3) / 4 * 4;
+}
+
+// Bytes of the K/V region: K and V of a chunk (rows padded by 16 bytes),
+// which the combining block reuses for the partials, so at least one.
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_decode(const T* __restrict__ q, const T* __restrict__ kc,
-             const T* __restrict__ vc, const int* __restrict__ lens,
-             T* __restrict__ out, int h, int hkv, int t, float scale) {
-  constexpr int QS = DH + PAD;
+__host__ __device__ constexpr int dec_kv_bytes(int group, int chunk) {
+  return 2 * chunk * (DH + 16 / (int)sizeof(T)) * (int)sizeof(T) > 4 * dec_stride(group, DH)
+             ? 2 * chunk * (DH + 16 / (int)sizeof(T)) * (int)sizeof(T)
+             : 4 * dec_stride(group, DH);
+}
+
+// Shared memory of one K6 block: the K/V region, the scaled queries of the
+// group, the chunk's probabilities, and the chunk's (m, l) per head.
+template <typename T, int DH>
+size_t decode_smem_bytes(int group, int chunk) {
+  return dec_kv_bytes<T, DH>(group, chunk)
+         + sizeof(float) * ((size_t)group * DH + (size_t)group * chunk + 2 * group);
+}
+
+// Block (kv_head, b, split) owns keys [split * chunk, (split + 1) * chunk)
+// of row b's cache.  Of the splits, the first n_active = ceil(len / chunk)
+// hold valid keys; the rest return at once.  A lone active split writes the
+// output itself; otherwise each writes its partial (m, l, acc) and the last
+// to finish, by an atomic ticket, combines them in split order.
+template <typename T, int DH>
+__global__ void __launch_bounds__(DEC_THREADS)
+flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
+                   const T* __restrict__ vc, const int* __restrict__ lens,
+                   T* __restrict__ out, float* __restrict__ part,
+                   int* __restrict__ tickets, int h, int hkv, int t, int chunk,
+                   float scale) {
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int CH = DH / VEC;         // 16-byte copies per row
+  constexpr int RS = DH + VEC;         // padded row, elements
   const int group = h / hkv;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [group][DH+PAD]
-  float* ks = qs + group * QS;                  // [TK][DH+PAD]
-  float* vs = ks + TK * QS;                     // [TK][DH]
-  float* ps = vs + TK * DH;                     // [group][TK]
-  float* acc = ps + group * TK;                 // [group][DH]
-  float* m_run = acc + group * DH;              // [group]
-  float* l_run = m_run + group;                 // [group]
-  float* alpha = l_run + group;                 // [group]
+  T* ks = reinterpret_cast<T*>(smem4);                    // [chunk][RS]
+  T* vs = ks + (size_t)chunk * RS;                        // [chunk][RS]
+  const int kv_bytes = dec_kv_bytes<T, DH>(group, chunk);
+  float* qs = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + kv_bytes);  // [group][DH]
+  float* ps = qs + group * DH;                            // [group][chunk]
+  float* ml = ps + group * chunk;                         // m[group], l[group]
+  __shared__ int s_last;
 
-  const int kv_head = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int kv_head = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int len = min(max(lens[b], 0), t);
+  const int n_active = (len + chunk - 1) / chunk;
+  const size_t bh = (size_t)b * hkv + kv_head;
   const size_t qoff = ((size_t)b * h + (size_t)kv_head * group) * DH;
-  const T* kh = kc + ((size_t)b * hkv + kv_head) * t * DH;
-  const T* vh = vc + ((size_t)b * hkv + kv_head) * t * DH;
-
-  for (int i = threadIdx.x; i < group * DH; i += THREADS) {
-    qs[(i / DH) * QS + i % DH] = to_f32(q[qoff + i]) * scale;
-    acc[i] = 0.f;
+  if (split >= n_active) {
+    if (split == 0)  // len 0: nothing is attended and the row is 0
+      for (int i = tid; i < group * DH; i += DEC_THREADS) out[qoff + i] = from_f32<T>(0.f);
+    return;
   }
-  for (int g = threadIdx.x; g < group; g += THREADS) {
-    m_run[g] = NEG;
-    l_run[g] = 0.f;
-  }
+  const int k0 = split * chunk;
+  const int nk = min(chunk, len - k0);      // valid keys, >= 1
+  const int nk4 = min(chunk, (nk + 3) & ~3);  // rows staged (zero past nk)
+  const T* kh = kc + (bh * t + k0) * DH;
+  const T* vh = vc + (bh * t + k0) * DH;
 
-  for (int k0 = 0; k0 < len; k0 += TK) {
-    __syncthreads();  // previous tile consumed
-    load_kv<T, DH>(kh, vh, ks, vs, k0, len);
-    __syncthreads();
-    for (int i = threadIdx.x; i < group * TK; i += THREADS) {
-      const int g = i / TK, j = i % TK;
-      const float* qr = qs + g * QS;
-      const float* kr = ks + j * QS;
-      float sc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) sc = fmaf(qr[d], kr[d], sc);
-      ps[i] = sc;
-    }
-    __syncthreads();
-    for (int g = warp; g < group; g += WARPS) {
-      const bool ok0 = k0 + lane < len, ok1 = k0 + lane + 32 < len;
-      const float s0 = ok0 ? ps[g * TK + lane] : NEG;
-      const float s1 = ok1 ? ps[g * TK + lane + 32] : NEG;
-      const float m_old = m_run[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      ps[g * TK + lane] = p0;
-      ps[g * TK + lane + 32] = p1;
-      const float sum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha[g] = a;
-        l_run[g] = a * l_run[g] + sum;
-        m_run[g] = m_new;
+  // K, then V, in 16-byte copies; V lands while the scores are computed
+  for (int i = tid; i < nk4 * CH; i += DEC_THREADS) {
+    const int r = i / CH, c = i % CH;
+    cp_async16(ks + r * RS + c * VEC, r < nk ? kh + (size_t)r * DH + c * VEC : kh, r < nk);
+  }
+  cp_async_commit();
+  for (int i = tid; i < nk4 * CH; i += DEC_THREADS) {
+    const int r = i / CH, c = i % CH;
+    cp_async16(vs + r * RS + c * VEC, r < nk ? vh + (size_t)r * DH + c * VEC : vh, r < nk);
+  }
+  cp_async_commit();
+  for (int i = tid; i < group * DH; i += DEC_THREADS) qs[i] = to_f32(q[qoff + i]) * scale;
+  cp_async_wait_one();
+  __syncthreads();  // [1] q and K staged
+
+  // scores: tpk threads per key (one when the chunk has a key per thread),
+  // each taking every tpk-th head, DEC_HB heads per pass over the key's row
+  const int tpk = max(1, DEC_THREADS / chunk);
+  for (int jj = tid; jj < nk * tpk; jj += DEC_THREADS) {
+    const int j = jj / tpk;
+    const T* kr = ks + j * RS;
+    for (int g0 = jj % tpk; g0 < group; g0 += tpk * DEC_HB) {
+      float sc[DEC_HB];
+#pragma unroll
+      for (int u = 0; u < DEC_HB; ++u) sc[u] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        float kf[VEC];
+        load16_f32(kr + c * VEC, kf);
+#pragma unroll
+        for (int u = 0; u < DEC_HB; ++u) {
+          if (g0 + u * tpk < group) {
+            const float* qr = qs + (g0 + u * tpk) * DH + c * VEC;
+#pragma unroll
+            for (int e = 0; e < VEC; e += 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(qr + e);
+              sc[u] = fmaf(q4.x, kf[e], sc[u]);
+              sc[u] = fmaf(q4.y, kf[e + 1], sc[u]);
+              sc[u] = fmaf(q4.z, kf[e + 2], sc[u]);
+              sc[u] = fmaf(q4.w, kf[e + 3], sc[u]);
+            }
+          }
+        }
       }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < group * DH; i += THREADS) {
-      const int g = i / DH, d = i % DH;
-      const float* pr = ps + g * TK;
-      float a = acc[i] * alpha[g];
-#pragma unroll 8
-      for (int j = 0; j < TK; ++j) a = fmaf(pr[j], vs[j * DH + d], a);
-      acc[i] = a;
+#pragma unroll
+      for (int u = 0; u < DEC_HB; ++u)
+        if (g0 + u * tpk < group) ps[(g0 + u * tpk) * chunk + j] = sc[u];
     }
   }
+  __syncthreads();  // [2] scores written
+
+  // softmax of the chunk: one warp per head, max and sum by shuffles
+  for (int g = warp; g < group; g += DEC_THREADS / 32) {
+    float* pr = ps + g * chunk;
+    float mx = NEG;
+    for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, pr[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < nk4; j += 32) {
+      const float p = j < nk ? expf(pr[j] - mx) : 0.f;
+      pr[j] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      ml[g] = mx;
+      ml[group + g] = sum;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // [3] probabilities written, V staged
+
+  // P.V: one (head, column pair) per thread
+  const int stride = dec_stride(group, DH);
+  float* mine = part + (bh * gridDim.z + split) * stride;
+  for (int o = tid; o < group * DH / 2; o += DEC_THREADS) {
+    const int g = 2 * o / DH, d = 2 * o % DH;
+    const float* pr = ps + g * chunk;
+    float a0 = 0.f, a1 = 0.f;
+    for (int j = 0; j < nk4; j += 4) {
+      const float4 p4 = *reinterpret_cast<const float4*>(pr + j);
+      const float2 v0 = load2_f32(vs + j * RS + d), v1 = load2_f32(vs + (j + 1) * RS + d);
+      const float2 v2 = load2_f32(vs + (j + 2) * RS + d), v3 = load2_f32(vs + (j + 3) * RS + d);
+      a0 = fmaf(p4.x, v0.x, a0); a1 = fmaf(p4.x, v0.y, a1);
+      a0 = fmaf(p4.y, v1.x, a0); a1 = fmaf(p4.y, v1.y, a1);
+      a0 = fmaf(p4.z, v2.x, a0); a1 = fmaf(p4.z, v2.y, a1);
+      a0 = fmaf(p4.w, v3.x, a0); a1 = fmaf(p4.w, v3.y, a1);
+    }
+    if (n_active == 1) {
+      const float denom = fmaxf(ml[group + g], 1e-30f);
+      out[qoff + g * DH + d] = from_f32<T>(a0 / denom);
+      out[qoff + g * DH + d + 1] = from_f32<T>(a1 / denom);
+    } else {
+      *reinterpret_cast<float2*>(mine + g * DH + d) = make_float2(a0, a1);
+    }
+  }
+  if (n_active == 1) return;
+  for (int g = tid; g < 2 * group; g += DEC_THREADS) mine[group * DH + g] = ml[g];
+
+  // the last split of (b, kv_head) to finish combines all of them
+  __threadfence();
   __syncthreads();
-  for (int i = threadIdx.x; i < group * DH; i += THREADS)
-    out[qoff + i] = from_f32<T>(acc[i] / fmaxf(l_run[i / DH], 1e-30f));
+  if (tid == 0) s_last = atomicAdd(&tickets[bh], 1) == n_active - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // Stage the partials into the K/V region with 16-byte copies, in
+  // batches that fit (one at the LM path's shapes), and fold each batch
+  // into a running (max, sum, acc) kept in the freed q and score regions:
+  // per head the new max, the old sums' rescale and each split's weight,
+  // then every output in split order.
+  const int cap = kv_bytes / (4 * stride);
+  float* buf = reinterpret_cast<float*>(smem4);  // [cap][stride]
+  float* run_acc = qs;                           // [group][DH]
+  float* run_m = ps;                             // [group]
+  float* run_l = ps + group;                     // [group]
+  float* rescale = ps + 2 * group;               // [group]
+  for (int i = tid; i < group * DH; i += DEC_THREADS) run_acc[i] = 0.f;
+  for (int g = tid; g < group; g += DEC_THREADS) {
+    run_m[g] = NEG;
+    run_l[g] = 0.f;
+  }
+  const float* first = part + bh * gridDim.z * stride;
+  for (int s0 = 0; s0 < n_active; s0 += cap) {
+    const int nb = min(cap, n_active - s0);
+    for (int i = tid; i < nb * stride / 4; i += DEC_THREADS)
+      cp_async16(buf + 4 * i, first + (size_t)s0 * stride + 4 * i, true);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    for (int g = tid; g < group; g += DEC_THREADS) {
+      float m_new = run_m[g];
+      for (int sp = 0; sp < nb; ++sp) m_new = fmaxf(m_new, buf[sp * stride + group * DH + g]);
+      const float r = expf(run_m[g] - m_new);
+      float l = run_l[g] * r;
+      for (int sp = 0; sp < nb; ++sp) {
+        float* ml_sp = buf + sp * stride + group * DH;
+        const float w = expf(ml_sp[g] - m_new);
+        l = fmaf(w, ml_sp[group + g], l);
+        ml_sp[g] = w;  // the split's weight, in place of its max
+      }
+      run_m[g] = m_new;
+      run_l[g] = l;
+      rescale[g] = r;
+    }
+    __syncthreads();
+    for (int o = tid; o < group * DH; o += DEC_THREADS) {
+      const int g = o / DH;
+      float acc = run_acc[o] * rescale[g];
+      for (int sp = 0; sp < nb; ++sp)
+        acc = fmaf(buf[sp * stride + group * DH + g], buf[sp * stride + o], acc);
+      run_acc[o] = acc;
+    }
+    __syncthreads();
+  }
+  for (int o = tid; o < group * DH; o += DEC_THREADS)
+    out[qoff + o] = from_f32<T>(run_acc[o] / fmaxf(run_l[o / DH], 1e-30f));
+  if (tid == 0) tickets[bh] = 0;  // ready for the next launch, no memset
 }
 
 template <typename T, int DH>
@@ -643,15 +828,20 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out, int b
 
 template <typename T, int DH>
 int launch_decode(const void* q, const void* kc, const void* vc, const int* lens,
-                  void* out, int b, int h, int hkv, int t, float scale,
-                  cudaStream_t stream) {
-  const int smem = (int)(decode_smem_floats<DH>(h / hkv) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(hkv, b);
-  flash_decode<T, DH><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)kc, (const T*)vc, lens, (T*)out, h, hkv, t, scale);
+                  void* out, float* part, int* tickets, int b, int h, int hkv, int t,
+                  int chunk, int n_split, float scale, cudaStream_t stream) {
+  static int smem_set = 48 * 1024;  // dynamic shared memory allowed so far
+  const int smem = (int)decode_smem_bytes<T, DH>(h / hkv, chunk);
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_split<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  dim3 grid(hkv, b, n_split);
+  flash_decode_split<T, DH><<<grid, DEC_THREADS, smem, stream>>>(
+      (const T*)q, (const T*)kc, (const T*)vc, lens, (T*)out, part, tickets, h, hkv, t,
+      chunk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -694,24 +884,34 @@ int prefill_dh(int dh, const void* q, const void* k, const void* v, void* out,
 
 template <typename T>
 int decode_dh(int dh, const void* q, const void* kc, const void* vc, const int* lens,
-              void* out, int b, int h, int hkv, int t, float scale, cudaStream_t st) {
+              void* out, float* part, int* tickets, int b, int h, int hkv, int t,
+              int chunk, int n_split, float scale, cudaStream_t st) {
+#define REPRO_DECODE_CASE(DH)                                                     \
+  case DH:                                                                        \
+    return launch_decode<T, DH>(q, kc, vc, lens, out, part, tickets, b, h, hkv, t, \
+                                chunk, n_split, scale, st);
   switch (dh) {
-    case 16: return launch_decode<T, 16>(q, kc, vc, lens, out, b, h, hkv, t, scale, st);
-    case 32: return launch_decode<T, 32>(q, kc, vc, lens, out, b, h, hkv, t, scale, st);
-    case 64: return launch_decode<T, 64>(q, kc, vc, lens, out, b, h, hkv, t, scale, st);
-    case 128: return launch_decode<T, 128>(q, kc, vc, lens, out, b, h, hkv, t, scale, st);
+    REPRO_DECODE_CASE(16)
+    REPRO_DECODE_CASE(32)
+    REPRO_DECODE_CASE(64)
+    REPRO_DECODE_CASE(128)
   }
+#undef REPRO_DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" size_t repro_flash_decode_smem(int group, int dh) {
-  switch (dh) {
-    case 16: return decode_smem_floats<16>(group) * sizeof(float);
-    case 32: return decode_smem_floats<32>(group) * sizeof(float);
-    case 64: return decode_smem_floats<64>(group) * sizeof(float);
-    case 128: return decode_smem_floats<128>(group) * sizeof(float);
+extern "C" size_t repro_flash_decode_smem(int group, int dh, int chunk, int bf16) {
+  switch (dh * 2 + (bf16 != 0)) {
+    case 32: return decode_smem_bytes<float, 16>(group, chunk);
+    case 33: return decode_smem_bytes<__nv_bfloat16, 16>(group, chunk);
+    case 64: return decode_smem_bytes<float, 32>(group, chunk);
+    case 65: return decode_smem_bytes<__nv_bfloat16, 32>(group, chunk);
+    case 128: return decode_smem_bytes<float, 64>(group, chunk);
+    case 129: return decode_smem_bytes<__nv_bfloat16, 64>(group, chunk);
+    case 256: return decode_smem_bytes<float, 128>(group, chunk);
+    case 257: return decode_smem_bytes<__nv_bfloat16, 128>(group, chunk);
   }
   return 0;
 }
@@ -724,11 +924,18 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                     (cudaStream_t)stream);
 }
 
+// part: [B * Hkv * n_split * dec_stride(group, Dh)] f32 scratch; tickets: [B * Hkv]
+// int32, zero before the first launch and left zero by every launch.
 extern "C" int repro_flash_decode(const void* q, const void* kc, const void* vc,
-                                  const int* lens, void* out, int b, int h, int hkv,
-                                  int t, int dh, float scale, int bf16, void* stream) {
+                                  const int* lens, void* out, float* part, int* tickets,
+                                  int b, int h, int hkv, int t, int dh, int chunk,
+                                  int n_split, float scale, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (chunk < 4 || chunk % 4 || n_split < 1 || (long long)chunk * n_split < t)
+    return (int)cudaErrorInvalidValue;
   if (bf16)
-    return decode_dh<__nv_bfloat16>(dh, q, kc, vc, lens, out, b, h, hkv, t, scale, st);
-  return decode_dh<float>(dh, q, kc, vc, lens, out, b, h, hkv, t, scale, st);
+    return decode_dh<__nv_bfloat16>(dh, q, kc, vc, lens, out, part, tickets, b, h, hkv, t,
+                                    chunk, n_split, scale, st);
+  return decode_dh<float>(dh, q, kc, vc, lens, out, part, tickets, b, h, hkv, t, chunk,
+                          n_split, scale, st);
 }

@@ -19,24 +19,42 @@
 //
 // The TPU layout is not carried over: its dense [1, N] score row, one-hot
 // matmul gathers and whole-shard VMEM residency exist only because Mosaic
-// has no gather.  Here one block of 256 threads runs one query, with the
-// candidate list (distances, ids, expanded flags) in shared memory, and
-// gathers graph rows and vector rows straight from device memory, one warp
-// per scored row.  The visited set is an exact open-addressing hash in
-// shared memory whose capacity is at least 2 * (E + (n_iters + expand) * R),
-// the most ids a query can ever insert, so it never forgets and never
-// fills; a second small hash, cleared every trip, resolves duplicates in a
-// wavefront to their last position.  The candidate list is kept sorted by
-// distance (the seeds are sorted once, stably, which preserves the
-// (distance, position) order), so selecting the wavefront is a scan for the
-// first unexpanded entries, and the keep step is a merge of the list with
-// the trip's fresh neighbours, sorted by a bitonic network on (distance,
-// position).
+// has no gather.  Here one block of 256 threads runs one query and gathers
+// graph rows and vector rows straight from device memory.
+//
+// Layout.  Shared memory holds the query, two candidate lists (distances,
+// ids, expanded flags) used in turn, the trip's wavefront, its survivors,
+// and two hashes.  The visited set is an exact open-addressing hash whose
+// capacity is the power of two above E + (n_iters + expand) * R, the most
+// ids a query can ever insert (each trip inserts at most expand * R fresh
+// ids, and the trips expand at most n_iters + expand - 1 nodes in all), so
+// it never forgets and never fills: one slot at least stays empty, and a
+// probe ends there.  Its load factor stays under 0.82 (6720 ids in 8192
+// slots at width 64, R 64, expand 8), far lower in a typical search.  At
+// that configuration a block takes 53 KB, so four queries are resident on
+// an SM (registers are held to 64 for it).  A second small hash, cleared
+// every trip, resolves duplicates in a wavefront to their last position.
+//
+// A trip.  The list is kept sorted by (distance, position) with its finite
+// entries first and their count tracked, so the wavefront is the first
+// `expand` unexpanded entries.  Graph rows are gathered, visited ids
+// dropped and each remaining id's last position registered in one pass.
+// Fresh rows are scored in 16-byte loads (a D = 128 f32 row is one float4
+// per lane, bf16 half a warp, uint8 a quarter warp, with __dp4a), each warp
+// issuing the loads of four rounds of rows before it reduces any (for f32
+// rows, eight at 128 registers and two queries an SM when a launch has at
+// most two queries per SM: an f32 round is one row a warp, and a small
+// batch has an SM per query to fill), with a scalar path for rows that are not 16-byte multiples.  Once the list holds
+// W finite entries, a fresh score >= its last never enters it (ties go to
+// the list), so only the survivors are compacted, sorted in runs of 64
+// (one warp a run, by shuffles, no barrier) and put at their ranks in the
+// other list buffer (binary searches in the runs and the list); the
+// counters count every fresh row as before.  Six barriers a trip.
 //
 // What bounds it on an H100: the bytes it gathers, n_dist vector rows and
 // hops graph rows per query, each row a dependent read behind the previous
-// trip's selection; the kernel is bound by the latency of those gathers
-// long before the 3.35 TB/s of HBM.
+// trip's selection, so latency: more queries resident and more rows in
+// flight per query are the levers, not the 3.35 TB/s of HBM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -69,7 +87,7 @@ struct Params {
   int* out_nrr;           // [Q]
   int n, d, r, e, width, k, rerank_k, n_iters, expand, dx;
   float scale, zp;
-  int hash_log2, wave_log2, pad_pow2;
+  int hash_log2, wave_log2, slots;
 };
 
 __device__ __forceinline__ unsigned hash_slot(int key, int log2cap) {
@@ -103,72 +121,229 @@ __device__ __forceinline__ int warp_sum_i(int v) {
   return v;
 }
 
-// Score of vector row `id` against the query held in shared memory, on all
-// lanes of the calling warp.
-template <int STAGE, bool L2>
-__device__ float score_row(const Params& p, const float* qf, const int* qi,
-                           int cqn, int cqs, int id, int lane) {
-  const size_t base = (size_t)id * p.d;
-  if (STAGE == U8) {
-    const uint8_t* x = (const uint8_t*)p.x + base;
-    int acc = 0;
-    for (int i = lane; i < p.d; i += 32) acc += qi[i] * (int)x[i];
-    acc = warp_sum_i(acc);
-    const float ss = __fmul_rn(p.scale, p.scale);
-    if (L2) {
-      const int dc = p.xcnorm[id] + cqn - 2 * acc;
-      return __fmul_rn(fmaxf(__int2float_rn(dc), 0.f), ss);
-    }
-    const float t1 = __fmul_rn(ss, __int2float_rn(acc));
-    const float t2 = __fmul_rn(__fmul_rn(p.scale, p.zp),
-                               __int2float_rn(cqs + p.xcsum[id]));
-    const float t3 = __fmul_rn(__fmul_rn((float)p.d, p.zp), p.zp);
-    return -__fadd_rn(__fadd_rn(t1, t2), t3);
-  }
-  float acc = 0.f;
-  if (STAGE == BF16) {
-    const __nv_bfloat16* x = (const __nv_bfloat16*)p.x + base;
-    for (int i = lane; i < p.d; i += 32) acc = fmaf(qf[i], __bfloat162float(x[i]), acc);
-  } else {
-    const float* x = (const float*)p.x + base;
-    for (int i = lane; i < p.d; i += 32) acc = fmaf(qf[i], x[i], acc);
-  }
-  acc = warp_sum(acc);
-  return L2 ? p.xnorm[id] - 2.f * acc : -acc;
-}
-
 // (value, position) lexicographic order
 __device__ __forceinline__ bool lex_gt(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia > ib);
 }
 
+template <int STAGE> struct Elem;
+template <> struct Elem<F32> { using T = float; using Acc = float; };
+template <> struct Elem<BF16> { using T = __nv_bfloat16; using Acc = float; };
+template <> struct Elem<U8> { using T = uint8_t; using Acc = int; };
+
+// Query of the block in shared memory: f32 (f32/bf16 stages) or int codes,
+// plus the codes packed four to a word (uint8, for __dp4a).
+struct Query {
+  const float* qf;
+  const int* qi;
+  const uint32_t* qw;
+  int cqn, cqs;
+};
+
+// acc += x . q over one 16-byte unit (VEC) or one element of row `row`.
+template <int STAGE, bool VEC>
+__device__ __forceinline__ void dot_unit(typename Elem<STAGE>::Acc& acc, const void* row,
+                                         const Query& qr, int c) {
+  if constexpr (VEC) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(row) + c);
+    if constexpr (STAGE == U8) {
+      const uint32_t* qw = qr.qw + 4 * c;
+      acc = (int)__dp4a(w.x, qw[0], (unsigned)acc);
+      acc = (int)__dp4a(w.y, qw[1], (unsigned)acc);
+      acc = (int)__dp4a(w.z, qw[2], (unsigned)acc);
+      acc = (int)__dp4a(w.w, qw[3], (unsigned)acc);
+    } else if constexpr (STAGE == BF16) {
+      const float4 qa = reinterpret_cast<const float4*>(qr.qf)[2 * c];
+      const float4 qb = reinterpret_cast<const float4*>(qr.qf)[2 * c + 1];
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+      const float qs[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ws[i]));
+        acc = fmaf(qs[2 * i], xf.x, acc);
+        acc = fmaf(qs[2 * i + 1], xf.y, acc);
+      }
+    } else {
+      const float4 q4 = reinterpret_cast<const float4*>(qr.qf)[c];
+      const float4 x4 = *reinterpret_cast<const float4*>(&w);
+      acc = fmaf(q4.x, x4.x, acc);
+      acc = fmaf(q4.y, x4.y, acc);
+      acc = fmaf(q4.z, x4.z, acc);
+      acc = fmaf(q4.w, x4.w, acc);
+    }
+  } else {
+    if constexpr (STAGE == U8) acc += qr.qi[c] * (int)((const uint8_t*)row)[c];
+    else if constexpr (STAGE == BF16)
+      acc = fmaf(qr.qf[c], __bfloat162float(((const __nv_bfloat16*)row)[c]), acc);
+    else acc = fmaf(qr.qf[c], ((const float*)row)[c], acc);
+  }
+}
+
+// The per-row constant a score needs (|x|^2, code norm or code sum),
+// loaded beside the row so its latency overlaps the row's.
 template <int STAGE, bool L2>
-__global__ void __launch_bounds__(THREADS) beam_kernel(Params p) {
-  extern __shared__ int smem[];
-  const int W = p.width, NN = p.expand * p.r, P2 = p.pad_pow2;
+__device__ __forceinline__ typename Elem<STAGE>::Acc row_aux(const Params& p, int id) {
+  if constexpr (STAGE == U8) return L2 ? __ldg(p.xcnorm + id) : __ldg(p.xcsum + id);
+  else return L2 ? __ldg(p.xnorm + id) : 0.f;
+}
+
+// The score of a row from its dot product with the query and its row_aux
+// (the reference's arithmetic: uint8 integer-exact with the _rn epilogue).
+template <int STAGE, bool L2>
+__device__ __forceinline__ float finish(const Params& p, const Query& qr,
+                                        typename Elem<STAGE>::Acc acc,
+                                        typename Elem<STAGE>::Acc aux) {
+  if constexpr (STAGE == U8) {
+    const float ss = __fmul_rn(p.scale, p.scale);
+    if (L2) {
+      const int dc = aux + qr.cqn - 2 * acc;
+      return __fmul_rn(fmaxf(__int2float_rn(dc), 0.f), ss);
+    }
+    const float t1 = __fmul_rn(ss, __int2float_rn(acc));
+    const float t2 = __fmul_rn(__fmul_rn(p.scale, p.zp), __int2float_rn(qr.cqs + aux));
+    const float t3 = __fmul_rn(__fmul_rn((float)p.d, p.zp), p.zp);
+    return -__fadd_rn(__fadd_rn(t1, t2), t3);
+  } else {
+    return L2 ? aux - 2.f * acc : -acc;
+  }
+}
+
+// Score rows 0..count-1 (ids from id_of) on the whole block and hand each
+// (row, score) to emit on one lane.  A row is `nu` units (16-byte vectors,
+// or elements without VEC) read by `lpr` lanes (a power of two <= 32), so
+// a warp holds 32 / lpr rows per round; each warp issues ROUNDS rounds of
+// loads before any reduction, so 8 * ROUNDS * 32 / lpr rows are in flight
+// per block (at ROUNDS 4: 32 for f32 at D = 128, 64 for bf16, 128 for
+// uint8).
+template <int STAGE, bool L2, bool VEC, int ROUNDS, typename IdOf, typename Emit>
+__device__ __forceinline__ void score_rows(const Params& p, const Query& qr, int nu, int lpr,
+                                           int count, IdOf id_of, Emit emit) {
+  using T = typename Elem<STAGE>::T;
+  using Acc = typename Elem<STAGE>::Acc;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = lane % lpr, rpw = 32 / lpr, rsel = lane / lpr;
+  const int per_warp = ROUNDS * rpw;
+  for (int base = warp * per_warp; base < count; base += WARPS * per_warp) {
+    int id[ROUNDS];
+    Acc acc[ROUNDS], aux[ROUNDS];
+#pragma unroll
+    for (int u = 0; u < ROUNDS; ++u) {
+      const int j = base + u * rpw + rsel;
+      id[u] = j < count ? id_of(j) : -1;
+      acc[u] = 0;
+      aux[u] = sub == 0 && id[u] >= 0 ? row_aux<STAGE, L2>(p, id[u]) : 0;
+    }
+    for (int c = sub; c < nu; c += lpr) {
+#pragma unroll
+      for (int u = 0; u < ROUNDS; ++u)
+        if (id[u] >= 0)
+          dot_unit<STAGE, VEC>(acc[u], (const T*)p.x + (size_t)id[u] * p.d, qr, c);
+    }
+#pragma unroll
+    for (int u = 0; u < ROUNDS; ++u)
+      for (int o = lpr >> 1; o > 0; o >>= 1) acc[u] += __shfl_xor_sync(FULL, acc[u], o);
+    if (sub == 0) {
+#pragma unroll
+      for (int u = 0; u < ROUNDS; ++u)
+        if (id[u] >= 0) emit(base + u * rpw + rsel, finish<STAGE, L2>(p, qr, acc[u], aux[u]));
+    }
+  }
+}
+
+// Entries of a sorted run of n distances below v.
+__device__ __forceinline__ int count_below(const float* d, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) { const int mid = (lo + hi) >> 1; if (d[mid] < v) lo = mid + 1; else hi = mid; }
+  return lo;
+}
+
+// Entries of a run sorted by (distance, position) that come before (v, pv).
+__device__ __forceinline__ int count_lex_below(const float* d, const int* pos, int n, float v,
+                                               int pv) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (lex_gt(v, pv, d[mid], pos[mid])) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Sort n <= 64 (distance, position) pairs by (distance, position) on one
+// warp: a bitonic network over two elements per lane, no barrier.
+__device__ __forceinline__ void warp_sort64(float* d, int* pos, int n, int lane) {
+  float v[2];
+  int ix[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = lane + 32 * r;
+    v[r] = i < n ? d[i] : CUDART_INF_F;
+    ix[r] = i < n ? pos[i] : 0x7fffffff;
+  }
+  for (int size = 2; size <= 64; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {  // size 64: elements lane and lane + 32, ascending
+        if (lex_gt(v[0], ix[0], v[1], ix[1])) {
+          const float tv = v[0]; v[0] = v[1]; v[1] = tv;
+          const int ti = ix[0]; ix[0] = ix[1]; ix[1] = ti;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = lane + 32 * r;
+        const float ov = __shfl_xor_sync(FULL, v[r], stride);
+        const int oi = __shfl_xor_sync(FULL, ix[r], stride);
+        const bool keep_min = ((i & stride) == 0) == ((i & size) == 0);
+        const bool other_smaller = lex_gt(v[r], ix[r], ov, oi);
+        if (keep_min == other_smaller) { v[r] = ov; ix[r] = oi; }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = lane + 32 * r;
+    if (i < n) { d[i] = v[r]; pos[i] = ix[r]; }
+  }
+}
+
+// ROUNDS 4 holds a thread to 64 registers, so four blocks (queries) share
+// an SM; ROUNDS 8 doubles the rows in flight at 128 registers and two
+// blocks an SM, for f32 launches of at most two queries per SM.
+template <int STAGE, bool L2, bool VEC, int ROUNDS>
+__global__ void __launch_bounds__(THREADS, ROUNDS == 4 ? 4 : 2) beam_kernel(Params p) {
+  extern __shared__ int4 smem4[];
+  int* smem = reinterpret_cast<int*>(smem4);
+  const int W = p.width, NN = p.expand * p.r, NS = p.slots;
   const int HC = 1 << p.hash_log2, WC = 1 << p.wave_log2;
+  const int QW = p.d + (p.d + 3) / 4;
   float* qf = (float*)smem;                  // [D] query (f32/bf16 upcast)
   int* qi = smem;                            // [D] query codes (uint8)
-  float* cd = (float*)(smem + p.d);          // [W] candidate distances
-  int* ci = (int*)(cd + W);                  // [W] candidate ids
+  uint32_t* qw = (uint32_t*)(smem + p.d);    // [D/4] codes packed (uint8)
+  float* cd = (float*)(smem + QW);           // [W] list distances
+  int* ci = (int*)(cd + W);                  // [W] list ids
   int* ce = ci + W;                          // [W] expanded flags
-  float* cd2 = (float*)(ce + W);             // next list (double buffer)
+  float* cd2 = (float*)(ce + W);             // the other list (ping-pong)
   int* ci2 = (int*)(cd2 + W);
   int* ce2 = ci2 + W;
   int* nb = ce2 + W;                         // [NN] wavefront candidate ids
   int* wslot = nb + NN;                      // [NN] wavefront hash slot
-  float* fd = (float*)(wslot + NN);          // [P2] fresh distances
-  int* fp = (int*)(fd + P2);                 // [P2] fresh positions
-  int* vis = fp + P2;                        // [HC] visited hash
+  int* fp = wslot + NN;                      // [NN] fresh positions
+  float* sd = (float*)(fp + NN);             // [NS] survivor distances
+  int* sp = (int*)(sd + NS);                 // [NS] survivor positions
+  int* vis = sp + NS;                        // [HC] visited hash
   int* wkey = vis + HC;                      // [WC] wavefront hash keys
   int* wval = wkey + WC;                     // [WC] last position per key
   __shared__ int sel[32];
-  __shared__ int s_nlive, s_nfresh, s_cqn, s_cqs;
+  __shared__ int s_nlive, s_nfresh, s_nsurv, s_nfin, s_cqn, s_cqs;
   __shared__ float s_qn;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int qrow = blockIdx.x;
   const int n = p.n, sentinel = p.n;
+  constexpr int VW = VEC ? 16 / (int)sizeof(typename Elem<STAGE>::T) : 1;
+  const int nu = p.d / VW;
+  int lpr = 1;
+  while (lpr < 32 && lpr < nu) lpr <<= 1;
 
   for (int i = tid; i < p.d; i += THREADS) {
     const size_t at = (size_t)qrow * p.d + i;
@@ -176,7 +351,12 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(Params p) {
     else if (STAGE == BF16) qf[i] = __bfloat162float(((const __nv_bfloat16*)p.queries)[at]);
     else qf[i] = ((const float*)p.queries)[at];
   }
+  if (STAGE == U8 && VEC)
+    for (int i = tid; i < p.d / 4; i += THREADS)
+      qw[i] = *reinterpret_cast<const uint32_t*>((const uint8_t*)p.queries + (size_t)qrow * p.d + 4 * i);
   for (int i = tid; i < HC; i += THREADS) vis[i] = EMPTY;
+  for (int i = tid; i < WC; i += THREADS) { wkey[i] = EMPTY; wval[i] = -1; }
+  if (tid == 0) s_nfin = 0;
   __syncthreads();
   if (warp == 0) {
     if (STAGE == U8) {
@@ -193,14 +373,12 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(Params p) {
     }
   }
   __syncthreads();
-  const int cqn = STAGE == U8 ? s_cqn : 0, cqs = STAGE == U8 ? s_cqs : 0;
+  const Query qr{qf, qi, qw, STAGE == U8 ? s_cqn : 0, STAGE == U8 ? s_cqs : 0};
 
   // ---- seeding: score the entries, mark them visited, sort them stably ----
-  for (int j = warp; j < p.e; j += WARPS) {
-    const int id = p.entries[j];
-    const float v = score_row<STAGE, L2>(p, qf, qi, cqn, cqs, id, lane);
-    if (lane == 0) { cd2[j] = v; ci2[j] = id; }
-  }
+  score_rows<STAGE, L2, VEC, ROUNDS>(
+      p, qr, nu, lpr, p.e, [&](int j) { return p.entries[j]; },
+      [&](int j, float v) { cd2[j] = v; ci2[j] = p.entries[j]; });
   for (int j = tid; j < p.e; j += THREADS) hash_insert(vis, p.hash_log2, p.entries[j]);
   __syncthreads();
   for (int j = tid; j < W; j += THREADS) {
@@ -210,6 +388,7 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(Params p) {
       cd[rank] = cd2[j];
       ci[rank] = ci2[j];
       ce[rank] = 0;
+      if (isfinite(cd2[j])) atomicAdd(&s_nfin, 1);
     } else {
       cd[j] = CUDART_INF_F;
       ci[j] = sentinel;
@@ -218,15 +397,15 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(Params p) {
   }
   __syncthreads();
 
-  int n_dist = p.e, hops = 0;
+  // the list is sorted with its finite entries first; n_fin counts them
+  int n_fin = s_nfin, n_dist = p.e, hops = 0;
   while (hops < p.n_iters) {
     // ---- wavefront: the first `expand` unexpanded finite entries ----
     if (warp == 0) {
       int found = 0;
-      for (int base = 0; base < W && found < p.expand; base += 32) {
+      for (int base = 0; base < n_fin && found < p.expand; base += 32) {
         const int i = base + lane;
-        const bool ok = i < W && ce[i] == 0 && isfinite(cd[i]);
-        unsigned m = __ballot_sync(FULL, ok);
+        unsigned m = __ballot_sync(FULL, i < n_fin && ce[i] == 0);
         while (m && found < p.expand) {
           const int b = __ffs(m) - 1;
           m &= m - 1;
@@ -234,89 +413,95 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(Params p) {
           ++found;
         }
       }
-      if (lane == 0) { s_nlive = found; s_nfresh = 0; }
+      if (lane == 0) { s_nlive = found; s_nfresh = 0; s_nsurv = 0; }
     }
-    for (int i = tid; i < WC; i += THREADS) { wkey[i] = EMPTY; wval[i] = -1; }
     __syncthreads();
     const int nl = s_nlive;
     if (nl == 0) break;  // converged: nothing live to expand
     if (tid < nl) ce[sel[tid]] = 1;
 
-    // ---- gather neighbours; drop -1 and already-visited ids ----
+    // ---- gather neighbours, drop -1 and visited ids, and register each
+    //      remaining id's last position in the wavefront hash ----
     for (int q = tid; q < NN; q += THREADS) {
       const int j = q / p.r, rr = q % p.r;
       int id = -1;
       if (j < nl) {
         const int v = ci[sel[j]];
-        id = p.graph[(size_t)min(max(v, 0), n - 1) * p.r + rr];
+        id = __ldg(p.graph + (size_t)min(max(v, 0), n - 1) * p.r + rr);
         if (id >= 0 && hash_contains(vis, p.hash_log2, id)) id = -1;
       }
       nb[q] = id;
-    }
-    __syncthreads();
-    // ---- duplicates within the wavefront: the last position wins ----
-    for (int q = tid; q < NN; q += THREADS) {
-      if (nb[q] >= 0) {
-        const unsigned s = hash_insert(wkey, p.wave_log2, nb[q]);
+      if (id >= 0) {
+        const unsigned s = hash_insert(wkey, p.wave_log2, id);
         wslot[q] = (int)s;
         atomicMax(&wval[s], q);
       }
     }
     __syncthreads();
-    for (int q = tid; q < NN; q += THREADS) {
-      if (nb[q] >= 0 && wval[wslot[q]] == q) {
+    // ---- the last occurrence of each id is fresh: mark it visited, and
+    //      append it with one atomic per warp ----
+    for (int qb = tid - lane; qb < NN; qb += THREADS) {
+      const int q = qb + lane;
+      const bool win = q < NN && nb[q] >= 0 && wval[wslot[q]] == q;
+      const unsigned m = __ballot_sync(FULL, win);
+      int at = 0;
+      if (lane == 0 && m) at = atomicAdd(&s_nfresh, __popc(m));
+      at = __shfl_sync(FULL, at, 0) + __popc(m & ((1u << lane) - 1u));
+      if (win) {
         hash_insert(vis, p.hash_log2, nb[q]);
-        fp[atomicAdd(&s_nfresh, 1)] = q;
+        fp[at] = q;
       }
     }
     __syncthreads();
     const int nf = s_nfresh;
-    int f2 = 1;
-    while (f2 < nf) f2 <<= 1;
-    // ---- score the fresh neighbours, one warp per row ----
-    for (int j = warp; j < nf; j += WARPS) {
-      const float v = score_row<STAGE, L2>(p, qf, qi, cqn, cqs, nb[fp[j]], lane);
-      if (lane == 0) fd[j] = v;
-    }
-    for (int j = nf + tid; j < f2; j += THREADS) { fd[j] = CUDART_INF_F; fp[j] = 0x7fffffff; }
-    __syncthreads();
-    // ---- bitonic sort of the fresh (distance, position) pairs ----
-    for (int size = 2; size <= f2; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int i = tid; i < f2; i += THREADS) {
-          const int j = i ^ stride;
-          if (j > i) {
-            const bool up = (i & size) == 0;
-            if (lex_gt(fd[i], fp[i], fd[j], fp[j]) == up) {
-              const float tv = fd[i]; fd[i] = fd[j]; fd[j] = tv;
-              const int tp = fp[i]; fp[i] = fp[j]; fp[j] = tp;
-            }
+    // ---- score the fresh rows; keep only those that can enter the list:
+    //      once it holds W finite entries, fd >= cd[W-1] never can (ties
+    //      go to the list) ----
+    const float thr = n_fin == W ? cd[W - 1] : CUDART_INF_F;
+    score_rows<STAGE, L2, VEC, ROUNDS>(
+        p, qr, nu, lpr, nf, [&](int j) { return nb[fp[j]]; },
+        [&](int j, float v) {
+          if (v < thr) {
+            const int at = atomicAdd(&s_nsurv, 1);
+            sd[at] = v;
+            sp[at] = fp[j];
           }
-        }
-        __syncthreads();
-      }
-    }
-    // ---- keep the best `width` of list + fresh (list first on ties) ----
-    int n_fin = 0;
-    for (int i = 0; i < W; ++i) n_fin += isfinite(cd[i]) ? 1 : 0;  // sorted: finite prefix
+        });
+    for (int i = tid; i < WC; i += THREADS) { wkey[i] = EMPTY; wval[i] = -1; }
+    __syncthreads();
+    const int ns = s_nsurv;
+    // ---- sort the survivors in runs of 64, one warp a run, then put
+    //      every list entry and survivor at its rank in the other list
+    //      (list first on ties) and swap the two ----
+    const int n_runs = (ns + 63) / 64;
+    for (int r = warp; r < n_runs; r += WARPS)
+      warp_sort64(sd + 64 * r, sp + 64 * r, min(64, ns - 64 * r), lane);
+    __syncthreads();
     for (int i = tid; i < n_fin; i += THREADS) {
-      int lo = 0, hi = nf;  // fresh entries strictly closer
-      while (lo < hi) { const int mid = (lo + hi) >> 1; if (fd[mid] < cd[i]) lo = mid + 1; else hi = mid; }
-      const int at = i + lo;
+      int at = i;  // + survivors strictly closer
+      for (int r = 0; r < n_runs; ++r)
+        at += count_below(sd + 64 * r, min(64, ns - 64 * r), cd[i]);
       if (at < W) { cd2[at] = cd[i]; ci2[at] = ci[i]; ce2[at] = ce[i]; }
     }
-    for (int j = tid; j < nf; j += THREADS) {
-      int lo = 0, hi = n_fin;  // list entries at or below
-      while (lo < hi) { const int mid = (lo + hi) >> 1; if (cd[mid] <= fd[j]) lo = mid + 1; else hi = mid; }
-      const int at = j + lo;
-      if (at < W) { cd2[at] = fd[j]; ci2[at] = nb[fp[j]]; ce2[at] = 0; }
+    for (int j = tid; j < ns; j += THREADS) {
+      const int own = j / 64;
+      const float dj = sd[j];
+      int at = j - 64 * own;  // + survivors before it in the other runs
+      for (int r = 0; r < n_runs; ++r)
+        if (r != own) at += count_lex_below(sd + 64 * r, sp + 64 * r, min(64, ns - 64 * r), dj, sp[j]);
+      int lo = 0, hi = n_fin;  // + list entries at or below
+      while (lo < hi) { const int mid = (lo + hi) >> 1; if (cd[mid] <= dj) lo = mid + 1; else hi = mid; }
+      at += lo;
+      if (at < W) { cd2[at] = dj; ci2[at] = nb[sp[j]]; ce2[at] = 0; }
     }
-    for (int i = n_fin + nf + tid; i < W; i += THREADS) {
+    for (int i = n_fin + ns + tid; i < W; i += THREADS) {
       cd2[i] = CUDART_INF_F; ci2[i] = sentinel; ce2[i] = 1;
     }
     __syncthreads();
-    for (int i = tid; i < W; i += THREADS) { cd[i] = cd2[i]; ci[i] = ci2[i]; ce[i] = ce2[i]; }
-    __syncthreads();
+    float* td = cd; cd = cd2; cd2 = td;
+    int* ti = ci; ci = ci2; ci2 = ti;
+    int* te = ce; ce = ce2; ce2 = te;
+    n_fin = min(W, n_fin + ns);
     n_dist += nf;
     hops += nl;
   }
@@ -349,44 +534,122 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(Params p) {
       acc = warp_sum(acc);
       v = L2 ? acc : -acc;
     }
-    if (lane == 0) { fd[j] = v; fp[j] = ok ? ci[j] : 0x7fffffff; }
+    if (lane == 0) { sd[j] = v; sp[j] = ok ? ci[j] : 0x7fffffff; }
   }
   __syncthreads();
   const int rk = p.rerank_k;
   for (int j = tid; j < k; j += THREADS) {
     int rank = 0;
     for (int i = 0; i < k; ++i) {
-      const bool before = fd[i] < fd[j] || (fd[i] == fd[j] && (fp[i] < fp[j] || (fp[i] == fp[j] && i < j)));
+      const bool before = sd[i] < sd[j] || (sd[i] == sd[j] && (sp[i] < sp[j] || (sp[i] == sp[j] && i < j)));
       rank += before ? 1 : 0;
     }
     if (rank < rk) {
-      p.out_ids[(size_t)qrow * rk + rank] = fp[j] == 0x7fffffff ? -1 : fp[j];
-      p.out_d[(size_t)qrow * rk + rank] = fd[j];
+      p.out_ids[(size_t)qrow * rk + rank] = sp[j] == 0x7fffffff ? -1 : sp[j];
+      p.out_d[(size_t)qrow * rk + rank] = sd[j];
     }
   }
   if (warp == 0) {
     int nv = 0;
-    for (int j = lane; j < k; j += 32) nv += fp[j] != 0x7fffffff ? 1 : 0;
+    for (int j = lane; j < k; j += 32) nv += sp[j] != 0x7fffffff ? 1 : 0;
     nv = warp_sum_i(nv);
     if (lane == 0) { p.out_nd[qrow] = n_dist; p.out_hops[qrow] = hops; p.out_nrr[qrow] = nv; }
   }
 }
 
-template <int STAGE, bool L2>
-int launch(const Params& p, int nq, size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      beam_kernel<STAGE, L2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  beam_kernel<STAGE, L2><<<nq, THREADS, smem, s>>>(p);
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The kernel a launch of nq queries takes: for f32 rows, more rows in
+// flight per query when all of them fit two to an SM; more queries per SM
+// otherwise.  bf16 and uint8 rounds already hold 2 and 4 rows a warp, and
+// eight rounds did not make them faster.
+bool wide(int nq) { return nq <= 2 * sm_count(); }
+
+template <int STAGE, bool L2, bool VEC, int ROUNDS>
+int launch_rounds(const Params& p, int nq, size_t smem, cudaStream_t s) {
+  static size_t smem_set = 48 * 1024;  // dynamic shared memory allowed so far
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(beam_kernel<STAGE, L2, VEC, ROUNDS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  beam_kernel<STAGE, L2, VEC, ROUNDS><<<nq, THREADS, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <int STAGE, bool L2, bool VEC>
+int launch(const Params& p, int nq, size_t smem, cudaStream_t s) {
+  if constexpr (STAGE == F32)
+    if (wide(nq)) return launch_rounds<STAGE, L2, VEC, 8>(p, nq, smem, s);
+  return launch_rounds<STAGE, L2, VEC, 4>(p, nq, smem, s);
+}
+
+template <int STAGE, bool L2, bool VEC, int ROUNDS>
+int occupancy_rounds(size_t smem) {
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(beam_kernel<STAGE, L2, VEC, ROUNDS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, beam_kernel<STAGE, L2, VEC, ROUNDS>,
+                                                        THREADS, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+template <int STAGE, bool L2, bool VEC>
+int occupancy(int nq, size_t smem) {
+  if constexpr (STAGE == F32)
+    if (wide(nq)) return occupancy_rounds<STAGE, L2, VEC, 8>(smem);
+  return occupancy_rounds<STAGE, L2, VEC, 4>(smem);
+}
+
+// Rows of `d` elements of the stage's type can be read in 16-byte units.
+bool use_vec(int stage, int d, const void* x) {
+  const int size = stage == F32 ? 4 : stage == BF16 ? 2 : 1;
+  return (d * size) % 16 == 0 && (uintptr_t)x % 16 == 0;
+}
+
+// one case per (stage, metric, vector loads)
+#define REPRO_BEAM_CASES(FN, ...)                                                     \
+  switch ((stage * 2 + metric_ip) * 2 + (vec ? 1 : 0)) {                              \
+    case 0: return FN<F32, true, false>(__VA_ARGS__);                                 \
+    case 1: return FN<F32, true, true>(__VA_ARGS__);                                  \
+    case 2: return FN<F32, false, false>(__VA_ARGS__);                                \
+    case 3: return FN<F32, false, true>(__VA_ARGS__);                                 \
+    case 4: return FN<BF16, true, false>(__VA_ARGS__);                                \
+    case 5: return FN<BF16, true, true>(__VA_ARGS__);                                 \
+    case 6: return FN<BF16, false, false>(__VA_ARGS__);                               \
+    case 7: return FN<BF16, false, true>(__VA_ARGS__);                                \
+    case 8: return FN<U8, true, false>(__VA_ARGS__);                                  \
+    case 9: return FN<U8, true, true>(__VA_ARGS__);                                   \
+    case 10: return FN<U8, false, false>(__VA_ARGS__);                                \
+    case 11: return FN<U8, false, true>(__VA_ARGS__);                                 \
+  }
+
 }  // namespace
 
-extern "C" size_t repro_beam_smem(int d, int width, int nn, int pad_pow2,
+// slots: max(expand * R, width), the most survivors of a trip or re-rank keys
+extern "C" size_t repro_beam_smem(int d, int width, int nn, int slots,
                                   int hash_log2, int wave_log2) {
-  return sizeof(int) * ((size_t)d + 6 * (size_t)width + 2 * (size_t)nn + 2 * (size_t)pad_pow2
+  return sizeof(int) * ((size_t)d + ((size_t)d + 3) / 4 + 6 * (size_t)width
+                        + 3 * (size_t)nn + 2 * (size_t)slots
                         + ((size_t)1 << hash_log2) + 2 * ((size_t)1 << wave_log2));
+}
+
+// Resident blocks (queries) per SM of the kernel a launch of nq queries
+// takes, at `smem` bytes, for rows that are 16-byte aligned when `vec` is
+// set.
+extern "C" int repro_beam_occupancy(int stage, int metric_ip, int vec, int nq, size_t smem) {
+  REPRO_BEAM_CASES(occupancy, nq, smem)
+  return -(int)cudaErrorInvalidValue;
 }
 
 extern "C" int repro_fused_beam(
@@ -396,24 +659,18 @@ extern "C" int repro_fused_beam(
     int* out_ids, float* out_d, int* out_nd, int* out_hops, int* out_nrr,
     int n, int d, int r, int e, int nq, int width, int k, int rerank_k,
     int n_iters, int expand, int dx, int metric_ip, int stage,
-    float scale, float zp, int hash_log2, int wave_log2, int pad_pow2,
+    float scale, float zp, int hash_log2, int wave_log2, int slots,
     void* stream) {
   if (expand > 32 || width < 1 || k > width || hash_log2 < 1 || hash_log2 > 30)
     return (int)cudaErrorInvalidValue;
   Params p{x, graph, entries, queries, xnorm, xcnorm, xcsum, x_exact, q_exact,
            out_ids, out_d, out_nd, out_hops, out_nrr,
            n, d, r, e, width, k, rerank_k, n_iters, expand, dx,
-           scale, zp, hash_log2, wave_log2, pad_pow2};
-  const size_t smem = repro_beam_smem(d, width, expand * r, pad_pow2, hash_log2, wave_log2);
+           scale, zp, hash_log2, wave_log2, slots};
+  const size_t smem = repro_beam_smem(d, width, expand * r, slots, hash_log2, wave_log2);
   cudaStream_t s = (cudaStream_t)stream;
   if (nq == 0) return 0;
-  switch (stage * 2 + metric_ip) {
-    case 0: return launch<F32, true>(p, nq, smem, s);
-    case 1: return launch<F32, false>(p, nq, smem, s);
-    case 2: return launch<BF16, true>(p, nq, smem, s);
-    case 3: return launch<BF16, false>(p, nq, smem, s);
-    case 4: return launch<U8, true>(p, nq, smem, s);
-    case 5: return launch<U8, false>(p, nq, smem, s);
-  }
+  const bool vec = use_vec(stage, d, x);
+  REPRO_BEAM_CASES(launch, p, nq, smem, s)
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,10 @@ of a tile.  Head dims 16, 32, 64 and 128 are built.  K5 in bf16 runs its
 products on the tensor cores (bf16 x bf16 -> f32, exact products) and
 multiplies V by P split into a bf16 hi + lo pair, so P keeps 16
 significant bits; K5 in f32 and K6 use FP32 FMAs only (no tensor cores, no
-TF32).
+TF32).  K6 splits each row's cache over blocks (:func:`decode_plan`, from
+the cache's shape, so the lengths stay on the card) and combines the
+splits in the same launch through scratch kept for each (device, stream),
+which the launch leaves ready for the next one.
 """
 
 from __future__ import annotations
@@ -25,12 +28,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention as flash_decode_plain
 from repro_torch.kernels.ref import mha_attention as flash_attention_plain
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain",
+__all__ = ["decode_plan", "flash_attention_cuda", "flash_attention_plain",
            "flash_attention_single_p_cuda", "flash_decode_cuda",
            "flash_decode_plain"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may take on Hopper
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_TILE = 64  # keys per K6 tile
+_CHUNK_BYTES = 65536  # most bytes of K + V one K6 block holds
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -42,19 +48,65 @@ def _lib():
     lib.repro_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _F, _I, _I, _I, _P]
     lib.repro_flash_attention.restype = _I
-    lib.repro_flash_decode.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _F, _I, _P]
+    lib.repro_flash_decode.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _I, _I, _F, _I, _P]
     lib.repro_flash_decode.restype = _I
-    lib.repro_flash_decode_smem.argtypes = [_I, _I]
+    lib.repro_flash_decode_smem.argtypes = [_I, _I, _I, _I]
     lib.repro_flash_decode_smem.restype = ctypes.c_size_t
     return lib
 
 
 @functools.cache
-def _decode_fits(group: int, dh: int) -> bool:
-    """Whether K6's block for a GQA group of ``group`` heads at ``dh`` fits
-    one block's shared memory."""
-    return _lib().repro_flash_decode_smem(group, dh) <= _SMEM_LIMIT
+def decode_plan(b: int, hkv: int, t: int, dh: int,
+                itemsize: int) -> tuple[int, int]:
+    """K6's split of the cache, from its shape alone (never from the
+    lengths, which live on the card): ``(chunk, n_split)``, where block
+    ``s`` of a (row, KV head) owns keys ``[s * chunk, (s + 1) * chunk)``.
+    ``chunk`` is a multiple of the 64-key tile, as small as gives at least
+    four blocks per SM when every row is full, and no larger than keeps the
+    chunk's K and V within 64 KB of shared memory."""
+    tiles = -(-t // _TILE)
+    want = -(-4 * _SMS // (b * hkv))
+    most = max(1, _CHUNK_BYTES // (2 * _TILE * dh * itemsize))
+    chunk = _TILE * min(max(1, -(-tiles // want)), most)
+    return chunk, max(1, -(-t // chunk))
+
+
+@functools.cache
+def _decode_fits(group: int, dh: int, chunk: int, bf16: bool) -> bool:
+    """Whether K6's block for a GQA group of ``group`` heads at ``dh`` and
+    ``chunk`` keys fits one block's shared memory."""
+    return _lib().repro_flash_decode_smem(group, dh, chunk,
+                                          int(bf16)) <= _SMEM_LIMIT
+
+
+# K6's scratch for each (device, stream): the splits' partials (grown as
+# needed) and one ticket per (row, KV head), zeroed once here and left zero
+# by every launch, so a decode step adds no memset.  Launches on one stream
+# run in order, so they can share it; another stream gets its own.
+_WORKSPACE: dict[tuple[torch.device, int],
+                 tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _decode_workspace(dev: torch.device, stream: int, n_part: int,
+                      n_tickets: int):
+    part, tickets = _WORKSPACE.get((dev, stream), (None, None))
+    if part is not None and part.numel() >= n_part and \
+            tickets.numel() >= n_tickets:
+        return part, tickets
+    if torch.cuda.is_current_stream_capturing():
+        # memory made now would belong to the graph, and its zeros would
+        # be written only when the graph replays
+        raise RuntimeError(
+            "flash_decode_cuda needs new scratch while a CUDA graph is "
+            "being captured: call it once at this size on the capturing "
+            "stream before the capture")
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    _WORKSPACE[(dev, stream)] = (part, tickets)
+    return part, tickets
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -137,14 +189,21 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _lib()
-    if not _decode_fits(h // hkv, dh):
-        raise ValueError(f"a GQA group of {h // hkv} heads at head_dim {dh} "
+    bf16 = q.dtype == torch.bfloat16
+    group = h // hkv
+    chunk, n_split = decode_plan(b, hkv, t, dh, q.element_size())
+    if not _decode_fits(group, dh, chunk, bf16):
+        raise ValueError(f"a GQA group of {group} heads at head_dim {dh} "
                          "exceeds the block's shared memory")
+    # floats of one split's partial (acc, m, l), padded to 16 bytes
+    stride = -(-group * (dh + 2) // 4) * 4
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, tickets = _decode_workspace(q.device, stream,
+                                      b * hkv * n_split * stride, b * hkv)
     _build.count("flash_decode")
     rc = lib.repro_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, h, hkv, t, dh, float(scale),
-        int(q.dtype == torch.bfloat16), stream)
+        out.data_ptr(), part.data_ptr(), tickets.data_ptr(), b, h, hkv, t, dh,
+        chunk, n_split, float(scale), int(bf16), stream)
     _build.check(rc, "flash_decode")
     return out
