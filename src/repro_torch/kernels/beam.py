@@ -52,16 +52,39 @@ def _lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
     return o1.gather(1, o2)
 
 
+_LANES = 32
+
+
+def _lane_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum f32 ``terms`` over the last axis in K3's order, in elementwise
+    ops only, so that every step rounds once on any device: lane ``l`` adds
+    ``t[l], t[l+32], ...`` in turn (zero padding adds +0.0), then an xor
+    butterfly over offsets 16, 8, 4, 2, 1 (``acc + acc[l ^ off]``; IEEE
+    addition commutes, so every lane ends with the same sum)."""
+    pad = -terms.shape[-1] % _LANES
+    if pad:
+        terms = torch.nn.functional.pad(terms, (0, pad))
+    chunks = terms.reshape(*terms.shape[:-1], -1, _LANES)
+    acc = torch.zeros_like(chunks[..., 0, :])
+    for c in range(chunks.shape[-2]):
+        acc = acc + chunks[..., c, :]
+    idx = torch.arange(_LANES, device=terms.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., idx ^ off]
+    return acc[..., 0]
+
+
 def _rerank(out_ids, x_exact, q_exact, rerank_k: int, metric: str):
-    """Exact-f32 re-score of the candidates, sorted by (distance, id)."""
+    """Exact-f32 re-score of the candidates in K3's summation order
+    (:func:`_lane_sum`), sorted by (distance, id)."""
     n = x_exact.shape[0]
     valid = out_ids >= 0
     rows = x_exact[out_ids.long().clamp(0, n - 1)]  # [Q, k, Dx]
     if metric == "ip":
-        dex = -torch.bmm(rows, q_exact[:, :, None])[..., 0]
+        dex = -_lane_sum(rows * q_exact[:, None, :])
     else:
         diff = rows - q_exact[:, None, :]
-        dex = (diff * diff).sum(dim=-1)
+        dex = _lane_sum(diff * diff)
     ids_key = torch.where(valid, out_ids.long(), _I32_MAX)
     d_key = torch.where(valid, dex, torch.inf)
     order = _lexsort2(d_key, ids_key)[:, :rerank_k]

@@ -15,7 +15,11 @@
 //   * f32/bf16 L2 scores rank on |x|^2 - 2 q.x and add |q|^2 at the end;
 //     uint8 scores are absolute and integer-exact;
 //   * the epilogue re-scores the top k in exact f32, sorts by (distance,
-//     id), and counts n_rerank as the valid candidates.
+//     id), and counts n_rerank as the valid candidates.  Each exact
+//     distance is summed in one fixed order, lane sums then an xor
+//     butterfly with every operation rounded once, which the plain version
+//     (beam.py _lane_sum) writes in elementwise torch ops: the two agree
+//     bit for bit.
 //
 // The TPU layout is not carried over: its dense [1, N] score row, one-hot
 // matmul gathers and whole-shard VMEM residency exist only because Mosaic
@@ -526,12 +530,17 @@ __global__ void __launch_bounds__(THREADS, ROUNDS == 4 ? 4 : 2) beam_kernel(Para
     float v = CUDART_INF_F;
     if (ok) {
       const float* row = p.x_exact + (size_t)ci[j] * p.dx;
+      // one summation order, kernel and plain version alike (beam.py
+      // _lane_sum): lane l adds t[l], t[l+32], ... in turn, each term and
+      // sum rounded once (no FMA), then an xor butterfly over 16..1
       float acc = 0.f;
       for (int i = lane; i < p.dx; i += 32) {
-        if (L2) { const float df = row[i] - qx[i]; acc = fmaf(df, df, acc); }
-        else acc = fmaf(row[i], qx[i], acc);
+        float t;
+        if (L2) { const float df = __fsub_rn(row[i], qx[i]); t = __fmul_rn(df, df); }
+        else t = __fmul_rn(row[i], qx[i]);
+        acc = __fadd_rn(acc, t);
       }
-      acc = warp_sum(acc);
+      for (int o = 16; o > 0; o >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(FULL, acc, o));
       v = L2 ? acc : -acc;
     }
     if (lane == 0) { sd[j] = v; sp[j] = ok ? ci[j] : 0x7fffffff; }
