@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ``repro_torch`` on one NVIDIA H100.
 
-    python3 chip_smoke.py [--n 1000000] [--queries 10000]
+    python3 chip_smoke.py [--n 1000000] [--queries 10000] [--vamana-n 100000]
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
    and the build of the four CUDA sources (one ``nvcc`` per source, in
@@ -34,7 +34,21 @@
    own inputs (time and bound summed by range of Q).
 4. A small index searched on the card and on the CPU's plain path: the
    same ids and stats (uint8 exact).
-5. LM main path, counters zeroed just before and read just after:
+5. DiskANN path, counters zeroed just before and read just after:
+   ``make_clustered(vamana_n, 128, n_queries=2000, seed=1)`` written to a
+   BIGANN ``.fbin`` and memmapped back, ``build_diskann`` (uniform ω=2,
+   Vamana R=64, L=128 per shard; every round one K3 launch at Q=256,
+   width=k=n_iters=128, E=1, then the prune and reverse edges as torch
+   ops on the card) with its phase times, rounds, K3 device time against
+   the prune's, rounds a second and K3's occupancy at that shape; then the
+   merged index at k=10, width=64, f32, on ``fused`` and ``torch`` (2000
+   queries) and ``numpy`` (200): recall@10 against K4's ground truth and
+   QPS, fused and torch agreeing on 99.9% of ids.  K1, K3, K4 must have
+   launched.  Then ``torch`` on the card against the CPU (2000 queries;
+   uint8 exact, f32 99.9% of ids), one Vamana round's prune and reverse
+   edges on the card against the CPU on integer points (equal), and K3 at
+   the build shape against its plain version (ids and counters on 99.9%).
+6. LM main path, counters zeroed just before and read just after:
    TinyLlama-1.1B at full width (22 layers, d_model 2048, GQA 32/4) with
    seeded random weights in bf16, ``ServeEngine`` with 8 slots and
    max_len 2048 serving 12 greedy requests (prompts of 512–1024 tokens,
@@ -42,7 +56,7 @@
    wave, K6 once per layer and decode step.  Then one prefill and three
    decode steps under torch.profiler: host wall time against device busy
    time, and the kernels that take it.
-6. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
+7. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
    shape of the LM path (ragged last tiles), at head dims 16, 32 and 128,
    non-causal, S < T and GQA groups 1 and 8 (with the share of outputs
    bit-equal to the plain version), then at q [8,32,1024,64], k/v
@@ -56,7 +70,7 @@
    included.  SDPA is timed as the yardstick.  K6's scratch, kept per
    stream: grown between launches back to back, used by a captured CUDA
    graph on new inputs, and refused when a capture would need more.
-7. The small TinyLlama config in f32, prefill and 4 decode steps on the
+8. The small TinyLlama config in f32, prefill and 4 decode steps on the
    card and on the CPU's plain path: logits to 1e-4, greedy tokens equal.
 
 Prints one ``{"kernels": [...]}`` line, then the card's line, then
@@ -572,6 +586,25 @@ def check_k4(torch, rows, ds, res):
         f"{t_opt:.3f} s")
 
 
+def k3_bound(x, graph, q, out, x_exact=None):
+    """K3's bound from one launch's inputs and outputs ``(ids, dists,
+    n_dist, hops, n_rerank)``.  Bytes: each input read once, and of a
+    gathered one (store rows, graph rows, exact rows) no more than this
+    run's gathers touch: a store that the launch sweeps many times counts
+    once, the least it must move from HBM; each output written once.
+    Operations: 2·D FP32 a distance, traversal and re-rank."""
+    nd, hops, nrr = (int(t.sum()) for t in out[2:])
+    d = x.shape[1]
+    n_bytes = (min(nd * d, x.numel()) * x.element_size()
+               + min(hops * graph.shape[1], graph.numel()) * 4
+               + q.numel() * q.element_size()
+               + sum(t.numel() * t.element_size() for t in out))
+    if x_exact is not None:
+        n_bytes += (min(nrr * d, x_exact.numel()) * 4
+                    + q.shape[0] * d * 4)
+    return bound_ms(n_bytes, 2 * (nd + nrr) * d, H100_FP32_FLOPS)
+
+
 @contextlib.contextmanager
 def k3_tally():
     """Tally K3's launches by (Q, dtype, k, re-rank) while the block runs,
@@ -601,7 +634,8 @@ def k3_tally():
 def k3_by_q(torch, shapes, first):
     """K3 at every launch shape of the main path, on the inputs of its
     first launch there (the graph, data and queries that launch had):
-    time, bound by bytes, and launches × time summed by range of Q."""
+    time, bound (:func:`k3_bound`), and launches × time summed by range
+    of Q."""
     from repro_torch.kernels import beam
 
     buckets: dict = {}
@@ -612,12 +646,8 @@ def k3_by_q(torch, shapes, first):
         ms = events_ms(torch, lambda: beam.fused_beam_cuda(*args, **kw),
                        reps=3)
         x, graph, _, q, _ = args
-        nd, hops, nrr = (int(t.sum()) for t in out[2:])
-        dx = kw["x_exact"].shape[1] if kw.get("rerank_k") else 0
-        n_bytes = (nd * x.shape[1] * x.element_size()
-                   + hops * graph.shape[1] * 4 + nrr * dx * 4
-                   + q.numel() * q.element_size())
-        b, _ = bound_ms(n_bytes, 2 * nd * x.shape[1], H100_FP32_FLOPS)
+        b, _ = k3_bound(x, graph, q, out,
+                        kw.get("x_exact") if kw.get("rerank_k") else None)
         q_n = key[0]
         rng = ("Q <= 64" if q_n <= 64 else "64 < Q <= 512" if q_n <= 512
                else "512 < Q <= 2560" if q_n <= 2560 else f"Q = {q_n}")
@@ -655,7 +685,7 @@ def check_k3(torch, rows, ds, merged):
     """K3 on the built merged graph against its plain version, at 256
     queries and at the merged search's own launch (every query), in f32,
     bf16 and uint8 (uint8 ids and counters exact), each timed beside its
-    bound by bytes."""
+    bound (:func:`k3_bound`)."""
     import numpy as np
 
     from repro_torch.kernels import beam
@@ -699,11 +729,8 @@ def check_k3(torch, rows, ds, merged):
                 prep.x, prep.graph, entries, q, kq, aux=prep.aux, **kw),
                 reps=3)
             nd, hops, nrr = (int(t.sum()) for t in got[2:])
-            itemsize = prep.x.element_size()
-            d, r = prep.x.shape[1], prep.graph.shape[1]
-            n_bytes = (nd * d * itemsize + hops * r * 4 + nrr * d * 4
-                       + q.numel() * q.element_size())
-            b, by = bound_ms(n_bytes, 2 * nd * d, H100_FP32_FLOPS)
+            b, by = k3_bound(prep.x, prep.graph, q, got,
+                             exact.x if extra else None)
             log(f"K3 fused_beam {dtype} Q={nq} N={prep.x.shape[0]} width=64 "
                 f"k={kq} rerank={'10' if extra else '-'} "
                 f"id_agreement={ids_eq:.6f} stats_agreement={stats_eq:.6f} "
@@ -796,6 +823,292 @@ def check_small_against_cpu(torch):
             else:
                 need(agree >= 0.99, f"{dtype} search on the card differs "
                      "from the CPU beyond near-ties")
+
+
+@contextlib.contextmanager
+def k3_build_timer(torch, pool: int):
+    """Time every K3 launch at the Vamana build shape (k == width == the
+    pool) with CUDA events around the C launch alone (the wrapper's checks
+    stay outside), beside (not instead of) its launch counter, and keep the
+    first such launch's inputs."""
+    from repro_torch.kernels import beam
+
+    events: list = []
+    first: dict = {}
+    on = [False]
+    launch = beam.fused_beam_cuda
+    lib = beam._lib()
+    c_launch = lib.repro_fused_beam
+
+    def timed(x, graph, entries, queries, k, **kw):
+        if k != pool or kw.get("width") != pool:
+            return launch(x, graph, entries, queries, k, **kw)
+        first.setdefault("args", ((x, graph, entries, queries, k), kw))
+        on[0] = True
+        try:
+            return launch(x, graph, entries, queries, k, **kw)
+        finally:
+            on[0] = False
+
+    def c_timed(*a):
+        if not on[0]:
+            return c_launch(*a)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = c_launch(*a)
+        end.record()
+        events.append((start, end))
+        return rc
+
+    beam.fused_beam_cuda = timed
+    lib.repro_fused_beam = c_timed
+    try:
+        yield events, first
+    finally:
+        beam.fused_beam_cuda = launch
+        lib.repro_fused_beam = c_launch
+
+
+def diskann_path(torch, args):
+    """The DiskANN baseline on the card, counters zeroed just before and
+    read just after: ``make_clustered(n_v, 128, n_queries=2000, seed=1)``
+    (ground truth from K4) written to a BIGANN ``.fbin`` and memmapped back,
+    ``build_diskann`` with the ``IndexConfig`` defaults (uniform ω=2
+    replication, Vamana R=64, L=128 per shard: every round a K3 launch at
+    Q=256, width=k=n_iters=128, E=1, then the prune and reverse edges as
+    torch ops on the card), then the merged index searched at k=10,
+    width=64 in f32 on ``fused`` and ``torch`` (2000 queries) and on
+    ``numpy`` (200).  K1, K3 and K4 must have launched."""
+    import numpy as np
+
+    from repro_torch.configs.base import IndexConfig
+    from repro_torch.core.builder import build_diskann
+    from repro_torch.data import formats
+    from repro_torch.data.synthetic import make_clustered, recall_at
+    from repro_torch.kernels import LAUNCHES, beam, reset_counts
+    from repro_torch.search import search
+    from repro_torch.telemetry import collect_stages
+
+    cfg = IndexConfig()
+    pool = max(cfg.build_degree, cfg.degree + 1)
+    reset_counts()
+    t0 = time.perf_counter()
+    ds = make_clustered(args.vamana_n, 128, n_queries=2000, seed=1)
+    path = ROOT / "build" / "diskann" / "base.fbin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    formats.write_bin(str(path), ds.data)
+    data = formats.read_bin(str(path))
+    need(isinstance(data, np.memmap) and data.shape == ds.data.shape
+         and np.array_equal(data[-7:], ds.data[-7:]),
+         "the .fbin does not read back")
+    log(f"diskann data n={args.vamana_n} d=128 queries=2000 written to "
+        f"{path.relative_to(ROOT)} ({path.stat().st_size} bytes) and "
+        f"memmapped back {time.perf_counter() - t0:.3f} s")
+    with k3_build_timer(torch, pool) as (events, first), \
+            collect_stages() as stages:
+        res = build_diskann(data, cfg)
+    torch.cuda.synchronize()
+    rounds = len(events)
+    k3_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    n_rows = sum(len(s.ids) for s in res.shards)
+    want_rounds = sum(2 * -(-len(s.ids) // 256) for s in res.shards
+                      if len(s.ids) > 1)
+    beam_s, prune_s = stages["vamana.beam"], stages["vamana.prune"]
+    log(f"diskann build partition_s={res.partition_s:.3f} "
+        f"build_only_s={res.build_only_s:.3f} merge_s={res.merge_s:.3f} "
+        f"overall_s={res.overall_s:.3f} shards={len(res.shards)} "
+        f"shard_rows={n_rows} replicas="
+        f"{res.stats['replica_proportion']:.4f}")
+    log(f"vamana rounds={rounds} (K3 launches at Q=256, width=k=n_iters="
+        f"{pool}) wall {beam_s + prune_s:.3f} s = beam {beam_s:.3f} s "
+        f"(K3 device {k3_s:.3f} s, {1e3 * k3_s / max(rounds, 1):.3f} ms a "
+        f"round) + prune and reverse edges {prune_s:.3f} s "
+        f"({1e3 * prune_s / max(rounds, 1):.3f} ms a round); "
+        f"rounds_per_s={rounds / res.build_only_s:.1f}; 1M build_only_s "
+        f"extrapolated linearly in rounds "
+        f"{res.build_only_s * 1_000_000 / args.vamana_n:.1f}")
+    need(rounds == want_rounds, f"{rounds} K3 build launches for "
+         f"{want_rounds} Vamana rounds")
+    (x, graph, _, _, _), _ = first["args"]
+    occ = beam.fused_beam_occupancy(x, graph.shape[1], 1, nq=256,
+                                    width=pool, n_iters=pool, expand=8,
+                                    metric="l2")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"K3 build shape: {occ['smem_bytes']} bytes of shared memory a "
+        f"block, {occ['blocks_per_sm']} blocks resident per SM, "
+        f"{occ['blocks_per_sm'] * n_sm} queries in flight")
+    topo = res.topology(data)
+    found = {}
+    for backend, nq in (("fused", 2000), ("torch", 2000), ("numpy", 200)):
+        q = ds.queries[:nq]
+        kw = dict(k=10, width=64, backend=backend)
+        search(topo, q[:100], **kw)  # device residency + warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, stats = search(topo, q, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = recall_at(ids, ds.gt[:nq], 10)
+        pq = stats.per_query()
+        log(f"diskann search {backend} f32 queries={nq} recall@10={rec:.4f} "
+            f"qps={nq / dt:.1f} wall_s={dt:.4f} "
+            f"dist/q={pq['distance_computations']:.1f} "
+            f"hops/q={pq['hops']:.1f}")
+        need(ids.shape == (nq, 10), "diskann search output shape")
+        need(rec >= 0.3, f"diskann {backend} recall@10 {rec:.4f} below 0.3")
+        found[backend] = ids
+    agree = float((found["fused"] == found["torch"]).mean())
+    log(f"diskann fused vs torch f32 id agreement {agree:.6f}")
+    need(agree >= 0.999, "fused and torch disagree on the DiskANN index")
+    launches = {name: LAUNCHES[name] for name in ANN_KERNELS}
+    log(f"diskann-path launches {json.dumps(launches)}")
+    for name in ("pairwise_distance", "fused_beam", "knn"):
+        need(launches[name] > 0, f"kernel {name} was not launched on the "
+             "DiskANN path")
+    return ds, res, topo, first, launches
+
+
+def check_torch_backend(torch, ds, topo):
+    """The ``torch`` backend on the card against itself on the CPU, all
+    2000 queries on the DiskANN index: uint8 ids and stats equal; f32 ids
+    on 99.9% or more of 20,000 (the card's matmuls sum in another order
+    than the CPU's, so ids may differ at near-ties of the distance; those
+    differing beyond a 1e-5 near-tie of the exact distance are counted)."""
+    import numpy as np
+
+    from repro_torch.search import search
+
+    q = np.ascontiguousarray(ds.queries)
+    x = torch.from_numpy(np.ascontiguousarray(topo.data, np.float32)).cuda()
+    for dtype in ("f32", "uint8"):
+        kw = dict(k=10, width=64, backend="torch", dtype=dtype)
+        gi, gs = search(topo, q, device="cuda", **kw)
+        t0 = time.perf_counter()
+        wi, ws = search(topo, q, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        agree = float((gi == wi).mean())
+        same = dataclasses.asdict(gs) == dataclasses.asdict(ws)
+        bad = near_ties(torch, torch.from_numpy(q).cuda(), x,
+                        torch.from_numpy(gi).cuda(),
+                        torch.from_numpy(wi).cuda(), 1e-5)
+        log(f"torch backend {dtype} card vs CPU ({len(q)} queries): "
+            f"id_agreement={agree:.6f} ids differing beyond a 1e-5 "
+            f"near-tie={bad} stats_equal={same} (CPU {cpu_s:.1f} s)")
+        if dtype == "uint8":
+            need(agree == 1.0 and same,
+                 "torch uint8 on the card differs from the CPU")
+        else:
+            need(agree >= 0.999, "torch f32 on the card differs from the "
+                 "CPU beyond near-ties")
+
+
+def check_vamana_round(torch, res):
+    """One Vamana round (α = 1.2) on integer-valued vectors at the largest
+    shard's size, from a random regular graph (every row full, so the
+    reverse edges overflow as in a pass's first rounds): K3 gives the pool
+    on the card, then the prune and the reverse-edge update run on the
+    card and on the CPU from the same pool and graph.  Every distance is
+    an exact integer, so the kept ids, the graph and the distance counter
+    must be equal.  The card's round is timed by phase, then profiled:
+    kernels launched and device busy time against its wall time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import IndexConfig
+    from repro_torch.core import vamana
+    from repro_torch.search import beam_pool
+
+    cfg = IndexConfig()
+    pool = max(cfg.build_degree, cfg.degree + 1)
+    n = max(len(s.ids) for s in res.shards)
+    rng = np.random.default_rng(2)
+    ints = rng.integers(0, 16, (n, 128)).astype(np.float32)
+    graph0 = vamana._random_regular_init(n, cfg.degree, rng)
+    batch = rng.permutation(n)[:256]
+
+    def one_round(dev, pool_in=None):
+        x = torch.from_numpy(ints).to(dev)
+        g = torch.from_numpy(graph0.astype(np.int32)).to(dev)
+        b = torch.from_numpy(batch).to(dev)
+        counter = [0]
+        t0 = time.perf_counter()
+        if pool_in is None:
+            ids, dists, _ = beam_pool(x, g, 0, x[b], pool, n_iters=pool)
+        else:
+            ids, dists = (t.to(dev) for t in pool_in)
+        t1 = time.perf_counter()
+        kept = vamana.robust_prune_batch(b, ids, dists, x, 1.2, cfg.degree,
+                                         counter)
+        g[b] = kept.to(g.dtype)
+        int(counter[0])
+        t2 = time.perf_counter()
+        vamana._apply_reverse_edges(b, kept, g, x, 1.2, cfg.degree, counter)
+        count = int(counter[0])
+        t3 = time.perf_counter()
+        return (ids, dists), kept.cpu(), g.cpu(), count, (t1 - t0, t2 - t1,
+                                                          t3 - t2)
+
+    one_round("cuda")  # warm-up
+    pool_c, kc, gc, cc, (tb, tp, tr) = one_round("cuda")
+    _, kh, gh, ch, (_, hp, hr) = one_round("cpu", pool_c)
+    same = (torch.equal(kc, kh), torch.equal(gc, gh), cc == ch)
+    log(f"vamana round on integer points (n={n}, 256 points, pool {pool}): "
+        f"card vs CPU keep/graph/counter equal={same} counter={cc}; card "
+        f"beam {1e3 * tb:.2f} ms, prune {1e3 * tp:.2f} ms, reverse edges "
+        f"{1e3 * tr:.2f} ms; CPU prune {1e3 * hp:.1f} ms, reverse edges "
+        f"{1e3 * hr:.1f} ms")
+    need(all(same), "a Vamana round's prune on the card differs from the CPU")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_round("cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} "
+                    f"x{e.count}" for e in rows[:5])
+    log(f"vamana round profiled: wall_ms={wall:.3f} device_busy_ms="
+        f"{busy:.3f} device_idle_share={1 - busy / wall:.3f} "
+        f"device_ops={sum(e.count for e in rows)} top_ms: {top}")
+
+
+def check_k3_build_shape(torch, first):
+    """K3 at the Vamana build shape against its plain version on the first
+    build launch's store and queries and its shard's final graph: ids on
+    99.9% or more, the per-query counters on as large a share; timed
+    beside its bound (:func:`k3_bound`: the shard's store and graph count
+    once, not once a gather)."""
+    from repro_torch.kernels import beam
+
+    (x, graph, entries, q, k), kw = first["args"]
+    plain_kw = {a: b for a, b in kw.items() if a != "aux"}
+    got = beam.fused_beam_cuda(x, graph, entries, q, k, **kw)
+    t0 = time.perf_counter()
+    want = beam.fused_beam_plain(x, graph, entries, q, k, **plain_kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ids_eq = float((got[0] == want[0]).float().mean())
+    stats_eq = float(((got[2] == want[2]) & (got[3] == want[3]))
+                     .float().mean())
+    same = (got[0] == want[0]) & torch.isfinite(want[1])
+    err = float((got[1] - want[1])[same].abs().max())
+    ms = events_ms(torch, lambda: beam.fused_beam_cuda(x, graph, entries, q,
+                                                       k, **kw), reps=5)
+    nd, hops = int(got[2].sum()), int(got[3].sum())
+    b, by = k3_bound(x, graph, q, got)
+    log(f"K3 build shape f32 Q={q.shape[0]} N={x.shape[0]} width={k} "
+        f"n_iters={kw['n_iters']} E={entries.shape[0]} "
+        f"id_agreement={ids_eq:.6f} stats_agreement={stats_eq:.6f} "
+        f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.1f} "
+        f"bound_ms={b:.4f} ({by}) share_of_bound={b / ms:.3f} "
+        f"(n_dist={nd} hops={hops})")
+    need(ids_eq >= 0.999 and stats_eq >= 0.999,
+         "K3 at the build shape disagrees with its plain version")
+    need(err <= 1e-3 + 1e-5 * float(want[1][same].abs().max()),
+         "K3 at the build shape: distances disagree")
 
 
 def lm_path(torch):
@@ -1208,6 +1521,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
+    ap.add_argument("--vamana-n", type=int, default=100_000)
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -1223,6 +1537,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.n != 1_000_000:
         log(f"CUT: n={args.n} instead of 1,000,000 (SIFT1M/BIGANN-1M shape)")
+    log(f"CUT: DiskANN phase n={args.vamana_n} instead of 1,000,000 (its "
+        "host merge and the run's time limit)")
     t_start = time.perf_counter()
     card = environment(torch)
     from repro_torch.kernels import LAUNCHES
@@ -1261,6 +1577,15 @@ def main(argv=None) -> int:
     k3_by_q(torch, k3_shapes, k3_first)
     del k3_first
     check_small_against_cpu(torch)
+    t0 = time.perf_counter()
+    dk_ds, dk_res, dk_topo, dk_first, dk_launches = diskann_path(torch, args)
+    for name, count in dk_launches.items():
+        rows[name]["launches"] += count
+    check_torch_backend(torch, dk_ds, dk_topo)
+    check_vamana_round(torch, dk_res)
+    check_k3_build_shape(torch, dk_first)
+    del dk_ds, dk_res, dk_topo, dk_first
+    log(f"DiskANN phases {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     lm_launches, longest, engine = lm_path(torch)
     for name, count in lm_launches.items():

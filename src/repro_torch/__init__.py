@@ -6,10 +6,13 @@ The reference is the JAX package ``repro`` beside this one: every module
 ``jax``.  What it covers so far is the build and query path of the
 README's quickstart: k-means partitioning with selective replication,
 CAGRA shard builds (exact kNN graph plus detour pruning), the edge-union
-merge, and the fused beam search over merged or centroid-routed split
-topologies at f32, bf16 and uint8 with the exact-f32 re-rank; and LM
-serving for the dense family (TinyLlama-1.1B): prefill and slot-batched
-decode through the flash-attention and flash-decode kernels.
+merge, and the beam search over merged or centroid-routed split
+topologies at f32, bf16 and uint8 with the exact-f32 re-rank on the
+``fused``, ``torch`` and ``numpy`` backends; the DiskANN baseline
+(uniform replication, batched Vamana shard builds, merge) from BIGANN
+``*bin`` files; and LM serving for the dense family (TinyLlama-1.1B):
+prefill and slot-batched decode through the flash-attention and
+flash-decode kernels.
 
 Parity contract.  On the same inputs, ``repro_torch.search.search`` returns
 the same ids and the same ``SearchStats`` (``dataclasses.asdict``) as
@@ -17,8 +20,9 @@ the same ids and the same ``SearchStats`` (``dataclasses.asdict``) as
 reference suite's tolerance.  The uint8 L2 stage is integer-exact.  No f32
 product runs in TF32.
 
-Device rule.  The public entry points (``build_scalegann``, ``search``,
-``make_clustered``, ``Model.init``, ``ServeEngine``) run on the card when
+Device rule.  The public entry points (``build_scalegann``,
+``build_diskann``, ``search``, ``make_clustered``, ``Model.init``,
+``ServeEngine``) run on the card when
 ``device`` is not given, and raise when CUDA is missing; ``device="cpu"``
 runs the plain PyTorch versions of the kernels instead.  Each kernel
 wrapper takes its plain version only because the tensor it was given lies

@@ -1,24 +1,30 @@
-"""End-to-end index construction (counterpart of ``repro/core/builder.py``).
+"""End-to-end index construction (counterpart of ``repro/core/builder.py``)
+for the four compared systems (paper §VI).
 
 :func:`build_scalegann` is the paper's system: selective-replication
-partition → per-shard CAGRA builds → edge-union merge.
-:func:`build_split_only` is the replication-free split of Extended CAGRA
-(k-means shards) or GGNN (contiguous blocks), served without a merge.
-Both run their distance work on ``device`` — the card unless ``"cpu"`` is
-given — and report the paper's timing metrics: ``partition_s``,
-``build_only_s`` (Σ shard builds), ``wall_build_s`` and ``merge_s``.
+partition → per-shard CAGRA (or Vamana) builds → edge-union merge.
+:func:`build_diskann` is the DiskANN baseline: uniform replication →
+per-shard Vamana → merge.  :func:`build_split_only` is the
+replication-free split of Extended CAGRA (k-means shards) or GGNN
+(contiguous blocks), served without a merge.  All run their distance work
+on ``device`` — the card unless ``"cpu"`` is given — and report the
+paper's timing metrics: ``partition_s``, ``build_only_s`` (Σ shard
+builds), ``wall_build_s`` and ``merge_s``.  ``reference=True`` runs the
+seed-loop shard builds and merge (host loops; the baseline the batched
+paths are held to).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from repro_torch.configs.base import IndexConfig
-from repro_torch.core import cagra
+from repro_torch.core import cagra, vamana
 from repro_torch.core.merge import GlobalIndex, merge_shard_indexes
 from repro_torch.core.partition import PartitionResult, Shard, partition
 from repro_torch.device import resolve_device
@@ -43,7 +49,22 @@ class ShardBuildError(RuntimeError):
         )
 
 
-BUILDERS = {"cagra": cagra.build_shard_index}
+def _sequential_vamana(vectors, cfg, *, device=None) -> cagra.ShardIndex:
+    del device  # the paper-faithful sequential build runs on the host
+    return vamana.build_shard_index_vamana_sequential(vectors, cfg)
+
+
+BUILDERS = {
+    "cagra": cagra.build_shard_index,
+    "vamana": vamana.build_shard_index_vamana,
+}
+
+# seed-loop baselines: the pre-vectorization hot loops, kept for the
+# parity tests and as the baseline the batched builds are measured against
+REFERENCE_BUILDERS = {
+    "cagra": functools.partial(cagra.build_shard_index, reference=True),
+    "vamana": _sequential_vamana,
+}
 
 
 @dataclasses.dataclass
@@ -89,10 +110,24 @@ class BuildResult:
             centroids=self.centroids,
         )
 
+    def search(self, data: np.ndarray, queries: np.ndarray, k: int, *,
+               backend: str = "fused", width: int = 64, n_entries: int = 16,
+               nprobe=None, metric: str = "l2", device=None):
+        """Serve queries on this build through
+        :func:`repro_torch.search.search`: the merged graph, or the routed
+        shards of a split-only build (``nprobe``)."""
+        from repro_torch.search import search
+
+        return search(
+            self.topology(data, metric=metric), queries, k,
+            backend=backend, width=width, n_entries=n_entries, nprobe=nprobe,
+            device=device,
+        )
+
 
 def _build_shards(data, shards, cfg, *, algo, n_workers, device,
-                  max_retries=2, retry_backoff_s=0.05):
-    build = BUILDERS[algo]
+                  reference=False, max_retries=2, retry_backoff_s=0.05):
+    build = (REFERENCE_BUILDERS if reference else BUILDERS)[algo]
     per_shard_s = [0.0] * len(shards)
     results: list = [None] * len(shards)
     attempts = [0] * len(shards)
@@ -143,15 +178,16 @@ def build_scalegann(
     algo: str = "cagra",
     n_workers: int = 1,
     selective: bool = True,
+    reference: bool = False,
     max_retries: int = 2,
     retry_backoff_s: float = 0.05,
     device=None,
 ) -> BuildResult:
     """The paper's system: selective-replication partition → shard builds
     → edge-union merge.  ``selective=False`` gives DiskANN's uniform
-    replication.  A shard build that raises is retried up to
-    ``max_retries`` times; one that exhausts its budget raises
-    :class:`ShardBuildError`."""
+    replication; ``reference=True`` the seed-loop shard builds and merge.
+    A shard build that raises is retried up to ``max_retries`` times; one
+    that exhausts its budget raises :class:`ShardBuildError`."""
     if algo not in BUILDERS:
         raise ValueError(f"algo must be one of {sorted(BUILDERS)}, "
                          f"got {algo!r}")
@@ -165,13 +201,15 @@ def build_scalegann(
 
     idxs, per_shard_s, wall, attempts, errors = _build_shards(
         data, part.shards, cfg, algo=algo, n_workers=n_workers, device=dev,
-        max_retries=max_retries, retry_backoff_s=retry_backoff_s,
+        reference=reference, max_retries=max_retries,
+        retry_backoff_s=retry_backoff_s,
     )
 
     t0 = time.perf_counter()
     with tr.span("build.merge", track="build", n_shards=len(part.shards)):
         merged = merge_shard_indexes(
             part.shards, idxs, len(data), cfg.degree, data=data,
+            reference=reference,
         )
     merge_s = time.perf_counter() - t0
     return BuildResult(
@@ -190,6 +228,19 @@ def build_scalegann(
         shard_attempts=attempts,
         shard_errors=errors,
     )
+
+
+def build_diskann(data: np.ndarray, cfg: IndexConfig, *, n_workers: int = 1,
+                  reference: bool = False, device=None) -> BuildResult:
+    """DiskANN baseline: uniform ≥1 replication + Vamana shard builds +
+    merge.  The shard builds run batched rounds on ``device`` (K3 searches,
+    prune and reverse edges on the card); ``reference=True`` runs the
+    paper-faithful sequential CPU algorithm end to end."""
+    res = build_scalegann(
+        data, cfg, algo="vamana", n_workers=n_workers, selective=False,
+        reference=reference, device=device,
+    )
+    return dataclasses.replace(res, name="diskann")
 
 
 def _split_partition(data, cfg: IndexConfig, *, kmeans: bool, device):
@@ -251,4 +302,19 @@ def build_split_only(
         centroids=centroids,
         shard_attempts=attempts,
         shard_errors=errors,
+    )
+
+
+def build_extended_cagra(data, cfg, *, n_workers: int = 1,
+                         device=None) -> BuildResult:
+    return build_split_only(
+        data, cfg, name="extended_cagra", kmeans_split=True,
+        n_workers=n_workers, device=device,
+    )
+
+
+def build_ggnn(data, cfg, *, n_workers: int = 1, device=None) -> BuildResult:
+    return build_split_only(
+        data, cfg, name="ggnn", kmeans_split=False, n_workers=n_workers,
+        device=device,
     )

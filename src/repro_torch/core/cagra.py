@@ -6,7 +6,9 @@ rank-based detour counting and reverse-edge augmentation.  The kNN graph
 runs through :func:`repro_torch.kernels.ops.knn` (K4 on the card); the
 detour counts are a batched ``torch.matmul`` on the same device, as the
 reference leaves them to XLA outside any Pallas kernel; the pruning and
-the reverse-edge fill are numpy, as in the reference.
+the reverse-edge fill are numpy, as in the reference.  ``reference=True``
+runs the reference's per-node seed loops for the reverse fill and the row
+dedup instead (bit-identical output; the seed-loop baseline).
 """
 
 from __future__ import annotations
@@ -86,6 +88,18 @@ def _detour_counts(nbr_vecs: torch.Tensor, nbr_dists: torch.Tensor,
     return counts, d_ij.shape[0] * L * L
 
 
+def _fill_reverse_loop(
+    src_s: np.ndarray, starts: np.ndarray, ends: np.ndarray, n: int, half: int
+) -> np.ndarray:
+    """Seed-loop reverse-edge fill, one python iteration per node."""
+    rev = np.full((n, half), -1, np.int32)
+    for v in range(n):
+        cnt = min(ends[v] - starts[v], half)
+        if cnt > 0:
+            rev[v, :cnt] = src_s[starts[v] : starts[v] + cnt]
+    return rev
+
+
 def _fill_reverse(
     src_s: np.ndarray, starts: np.ndarray, ends: np.ndarray, n: int, half: int
 ) -> np.ndarray:
@@ -99,6 +113,29 @@ def _fill_reverse(
     take = np.minimum(starts[:, None] + cols[None, :], src_s.size - 1)
     vals = src_s[take]
     return np.where(cols[None, :] < cnt[:, None], vals, -1).astype(np.int32)
+
+
+def _dedup_refill_loop(
+    graph: np.ndarray, leftover: np.ndarray, R: int
+) -> np.ndarray:
+    """Seed-loop per-row dedup + leftover refill (python sets, one
+    iteration per node)."""
+    out_rows = graph.copy()
+    for i in range(len(graph)):
+        seen, out = set(), []
+        for v in graph[i]:
+            if v >= 0 and v != i and v not in seen:
+                seen.add(v)
+                out.append(v)
+        if len(out) < R:
+            for v in leftover[i]:
+                if len(out) >= R:
+                    break
+                if v >= 0 and v != i and v not in seen:
+                    seen.add(v)
+                    out.append(v)
+        out_rows[i] = out + [-1] * (R - len(out))
+    return out_rows
 
 
 def _dedup_refill_rows(
@@ -135,10 +172,12 @@ def optimize_graph(
     *,
     metric: str = "l2",
     node_block: int = 2048,
+    reference: bool = False,
     device=None,
 ) -> tuple[np.ndarray, int]:
     """Prune the degree-L kNN graph to degree R: keep the R/2 forward edges
-    with the fewest detours, then fill with reverse edges (CAGRA §4.2)."""
+    with the fewest detours, then fill with reverse edges (CAGRA §4.2).
+    ``reference=True`` takes the per-node seed loops (same output)."""
     dev = resolve_device(device)
     n, L = nbrs.shape
     x = torch.from_numpy(np.ascontiguousarray(vectors, np.float32)).to(dev)
@@ -165,22 +204,26 @@ def optimize_graph(
     dst_s, src_s = dst[order2], src[order2]
     starts = np.searchsorted(dst_s, np.arange(n), side="left")
     ends = np.searchsorted(dst_s, np.arange(n), side="right")
-    rev = _fill_reverse(src_s, starts, ends, n, R // 2)
+    fill_rev = _fill_reverse_loop if reference else _fill_reverse
+    rev = fill_rev(src_s, starts, ends, n, R // 2)
 
     graph = np.concatenate([fwd, rev], axis=1)  # [n, R]
     # dedup per row (forward ∪ reverse may overlap); refill from leftover kNN
     leftover = np.take_along_axis(nbrs, order[:, fwd_keep:], axis=1)
-    graph = _dedup_refill_rows(graph, leftover, R)
+    dedup = _dedup_refill_loop if reference else _dedup_refill_rows
+    graph = dedup(graph, leftover, R)
     return graph.astype(np.int32), n_dist
 
 
 def build_shard_index(vectors: np.ndarray, cfg: IndexConfig, *,
-                      device=None) -> ShardIndex:
-    """Full CAGRA-style build of one shard."""
+                      reference: bool = False, device=None) -> ShardIndex:
+    """Full CAGRA-style build of one shard; ``reference=True`` routes
+    :func:`optimize_graph` through its seed loops (same graph)."""
     nbrs, dists, nd1 = build_knn_graph(
         vectors, cfg.build_degree, metric=cfg.metric, device=device
     )
     graph, nd2 = optimize_graph(
-        vectors, nbrs, dists, cfg.degree, metric=cfg.metric, device=device
+        vectors, nbrs, dists, cfg.degree, metric=cfg.metric,
+        reference=reference, device=device
     )
     return ShardIndex(graph=graph, n_distance_computations=nd1 + nd2)

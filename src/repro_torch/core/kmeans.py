@@ -47,10 +47,21 @@ def train_centroids(
         idx = rng.choice(n, size=sample, replace=False)
         x = np.asarray(data[np.sort(idx)], dtype=np.float32)
     else:
-        x = np.asarray(data, dtype=np.float32)
+        x = np.array(data, dtype=np.float32)  # a copy: data may be a memmap
     if x.shape[0] < k:
         raise ValueError(f"need at least k={k} points, got {x.shape[0]}")
     init = x[rng.choice(x.shape[0], size=k, replace=False)]
     centroids, _ = _lloyd(torch.from_numpy(np.ascontiguousarray(x)).to(dev),
                           torch.from_numpy(init).to(dev), k, iters)
     return centroids.cpu().numpy()
+
+
+def kmeans_cost(data: np.ndarray, centroids: np.ndarray, *,
+                device=None) -> float:
+    """Mean squared distance of every point to its nearest centroid (the
+    [N, k] tile is K1 on the card)."""
+    dev = resolve_device(device)
+    d = ops.pairwise_distance(
+        torch.tensor(np.asarray(data, np.float32), device=dev),
+        torch.tensor(np.asarray(centroids, np.float32), device=dev), "l2")
+    return float(d.min(dim=1).values.mean())

@@ -7,6 +7,9 @@ the closest neighbors.  The merge is the only stage that touches every shard
 index, so it is written as a streaming pass over (graph, manifest) pairs.
 Every edge is translated through the shard's (local → global) manifest, so
 the merge output is a pure function of the edge *set*, never of row order.
+``BufferedShardReader`` is the paper's buffered disk path with its state
+check; ``reference=True`` runs the per-gid seed loop; ``connectivity_stats``
+measures what the merge is for, global reachability.
 """
 
 from __future__ import annotations
@@ -74,6 +77,36 @@ class GlobalIndex:
 
     def out_degrees(self) -> np.ndarray:
         return (self.graph >= 0).sum(axis=1)
+
+
+class BufferedShardReader:
+    """Sequential-friendly buffered reader with the paper's state check.
+
+    Wraps a [n, D] shard-data array (or memmap).  ``get(local_id)`` serves
+    from an in-memory block buffer; an id outside the buffered window (an
+    out-of-order read) refills it, so any order is correct and sorted
+    order is fast.  ``hits`` / ``misses`` count the buffer's efficiency.
+    """
+
+    def __init__(self, rows: np.ndarray, buffer_rows: int = 4096):
+        self._rows = rows
+        self._buf_rows = int(buffer_rows)
+        self._lo = 0
+        self._hi = 0
+        self._buf: np.ndarray | None = None
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, local_id: int) -> np.ndarray:
+        # --- buffer state check (paper §V-C) ---
+        if self._buf is None or not (self._lo <= local_id < self._hi):
+            self.misses += 1
+            self._lo = local_id
+            self._hi = min(local_id + self._buf_rows, len(self._rows))
+            self._buf = np.asarray(self._rows[self._lo : self._hi])
+        else:
+            self.hits += 1
+        return self._buf[local_id - self._lo]
 
 
 def _translate(graph: np.ndarray, ids: np.ndarray) -> np.ndarray:
@@ -163,6 +196,58 @@ def _union_dedup_cap(
     return graph
 
 
+def _union_dedup_cap_loop(
+    shards: list[Shard],
+    indexes: list[ShardIndex],
+    n_total: int,
+    degree: int,
+    data: np.ndarray | None,
+) -> np.ndarray:
+    """Seed-loop edge union: presized union buffers + one python iteration
+    per global id (the reference's passes 2–3)."""
+    # Pass 1: count edges per global id to presize the union buffers.
+    counts = np.zeros(n_total, np.int64)
+    for shard, idx in zip(shards, indexes):
+        valid = (idx.graph >= 0).sum(axis=1)
+        np.add.at(counts, shard.ids, valid)
+    slots = np.maximum(counts, 1)
+    offsets = np.zeros(n_total + 1, np.int64)
+    np.cumsum(slots, out=offsets[1:])
+    edge_buf = np.full(offsets[-1], -1, np.int64)
+    fill = np.zeros(n_total, np.int64)
+
+    # Pass 2: translate + scatter each shard's edges (order-free).
+    for shard, idx in zip(shards, indexes):
+        g = _translate(idx.graph, shard.ids)  # [n, R] global
+        for row, gid in enumerate(shard.ids):
+            nbrs = g[row]
+            nbrs = nbrs[nbrs >= 0]
+            s = offsets[gid] + fill[gid]
+            edge_buf[s : s + len(nbrs)] = nbrs
+            fill[gid] += len(nbrs)
+
+    # Pass 3: dedup + cap per vector.
+    graph = np.full((n_total, degree), -1, np.int32)
+    for gid in range(n_total):
+        nbrs = edge_buf[offsets[gid] : offsets[gid] + fill[gid]]
+        nbrs = nbrs[(nbrs >= 0) & (nbrs != gid)]
+        if nbrs.size == 0:
+            continue
+        # stable unique preserving first-seen order
+        uniq, first = np.unique(nbrs, return_index=True)
+        uniq = uniq[np.argsort(first, kind="stable")]
+        if uniq.size > degree:
+            if data is not None:
+                v = np.asarray(data[gid], np.float32)
+                cand = np.asarray(data[uniq], np.float32)
+                d = ((cand - v) ** 2).sum(axis=1)
+                uniq = uniq[np.argsort(d, kind="stable")[:degree]]
+            else:
+                uniq = uniq[:degree]
+        graph[gid, : uniq.size] = uniq
+    return graph
+
+
 def merge_shard_indexes(
     shards: list[Shard],
     indexes: list[ShardIndex],
@@ -171,6 +256,7 @@ def merge_shard_indexes(
     *,
     data: np.ndarray | None = None,
     centroid_of: np.ndarray | None = None,
+    reference: bool = False,
 ) -> GlobalIndex:
     """Edge-union merge with degree cap.
 
@@ -182,10 +268,15 @@ def merge_shard_indexes(
     ``centroid_of`` ([N] shard id of the original assignment) is only used
     for the medoid choice; the medoid is the vector closest to the global
     mean when ``data`` is given, else vector 0.
+
+    ``reference=True`` runs the per-gid seed loop instead of the global
+    segment sort (same edge sets; under-capacity rows keep first-seen
+    order there).
     """
     if len(shards) != len(indexes):
         raise ValueError("shards and indexes must align")
-    graph = _union_dedup_cap(shards, indexes, n_total, degree, data)
+    union = _union_dedup_cap_loop if reference else _union_dedup_cap
+    graph = union(shards, indexes, n_total, degree, data)
 
     medoid = 0
     if data is not None:
@@ -195,3 +286,27 @@ def merge_shard_indexes(
         mean = probe.mean(axis=0)
         medoid = int(probe_ids[((probe - mean) ** 2).sum(axis=1).argmin()])
     return GlobalIndex(graph=graph, medoid=medoid, n_vectors=n_total)
+
+
+def connectivity_stats(index: GlobalIndex, *, sample: int = 2048,
+                       seed: int = 0):
+    """BFS reachability from the medoid — the merge exists for global
+    connectivity (§IV), so it is measured."""
+    n = index.n_vectors
+    seen = np.zeros(n, bool)
+    frontier = [index.medoid]
+    seen[index.medoid] = True
+    while frontier:
+        nxt = index.graph[frontier].reshape(-1)
+        nxt = nxt[nxt >= 0]
+        nxt = np.unique(nxt)
+        nxt = nxt[~seen[nxt]]
+        seen[nxt] = True
+        frontier = nxt.tolist()
+    degs = index.out_degrees()
+    return {
+        "reachable_fraction": float(seen.mean()),
+        "mean_degree": float(degs.mean()),
+        "min_degree": int(degs.min()),
+        "isolated": int((degs == 0).sum()),
+    }

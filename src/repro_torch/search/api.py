@@ -2,7 +2,10 @@
 of ``repro/search/api.py``).
 
 The registry holds ``fused`` (the counterpart of the reference's
-``pallas``: the hand-written beam kernel on the card).
+``pallas``: the hand-written beam kernel on the card, and the default),
+``torch`` (the counterpart of ``jax``: the batched beam as torch ops on
+the CPU or the card) and ``numpy`` (the exact per-query reference beam on
+the host).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.search.types import (DEFAULT_RERANK, MergedTopology,
                                       NprobeSpec, SearchStats, ShardTopology,
-                                      as_topology, parse_dtype, parse_nprobe)
+                                      as_topology, is_live, parse_dtype,
+                                      parse_nprobe)
 from repro_torch.telemetry import current_tracer
 
 
@@ -41,6 +45,8 @@ class SearchBackend(Protocol):
 
 # name -> backend object, or a module path resolved on first use
 _REGISTRY: dict[str, SearchBackend | str] = {
+    "numpy": "repro_torch.search.numpy_backend",
+    "torch": "repro_torch.search.torch_backend",
     "fused": "repro_torch.search.fused_backend",
 }
 
@@ -72,13 +78,17 @@ def get_backend(name: str) -> SearchBackend:
 
 def beam_pool(data, graph, entries, queries, pool: int, *,
               backend: str = "fused", n_iters: int | None = None,
-              metric: str = "l2", n_real: int | None = None, device=None
-              ) -> tuple[np.ndarray, np.ndarray, SearchStats]:
+              metric: str = "l2", n_real: int | None = None, device=None):
     """Build-time search primitive: the engine's raw batched beam, returning
     the whole candidate pool per query — ``(ids [Q, pool] int64 with -1
     padding, dists [Q, pool] f32, SearchStats)`` — with ``k == width ==
     pool``.  ``n_real`` limits the stats and the returned rows to the first
-    ``n_real`` queries."""
+    ``n_real`` queries.
+
+    A host graph gives numpy out.  A ``graph`` given as a tensor (a
+    build's, which it mutates between calls) gives tensors out on
+    ``device``: every backend reads it and ``data`` as they are at this
+    call and keeps no copy of them (:func:`is_live`)."""
     impl = get_backend(backend)
     beam = getattr(impl, "beam_fn", None)
     if beam is None:
@@ -88,7 +98,8 @@ def beam_pool(data, graph, entries, queries, pool: int, *,
     pool = int(pool)
     if pool < 1:
         raise ValueError(f"pool must be >= 1, got {pool}")
-    queries = np.asarray(queries, np.float32)
+    if not isinstance(queries, torch.Tensor):
+        queries = np.asarray(queries, np.float32)
     ids, dists, stats = beam(
         data, graph, entries, queries, pool, width=pool, n_iters=n_iters,
         metric=metric, n_real=n_real, device=resolve_device(device),
@@ -96,6 +107,8 @@ def beam_pool(data, graph, entries, queries, pool: int, *,
     if n_real is not None:
         ids, dists = ids[:n_real], dists[:n_real]
     stats.n_queries = len(queries) if n_real is None else n_real
+    if is_live(graph):
+        return ids, dists, stats
     return np.asarray(ids, np.int64), np.asarray(dists, np.float32), stats
 
 

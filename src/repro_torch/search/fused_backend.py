@@ -16,7 +16,8 @@ What lives here rather than in the kernel module:
   * **The beam_fn protocol** (:func:`fused_beam_search`) for the shared
     ``run_merged`` / ``run_split`` search loops and :func:`repro_torch.search
     .beam_pool`: numpy in and out, ``n_real`` stats slicing, ``quant``
-    staging.
+    staging.  A graph given as a tensor (a Vamana build's live state) is
+    read, with its store, as it is at each call and never cached.
   * **The fused merged staged path** (``fused_beam_search.fused_merged``):
     ``run_merged`` hands the whole staged search back here, so traversal
     and the exact-f32 re-rank run in one dispatch.  It never sees
@@ -35,7 +36,8 @@ import torch
 from repro_torch.kernels import beam as _beam
 from repro_torch.search.types import (DEFAULT_RERANK, MergedTopology,
                                       NprobeSpec, QuantSpec, SearchStats,
-                                      ShardTopology, run_merged, run_split)
+                                      ShardTopology, is_live, run_merged,
+                                      run_split)
 
 # a serving deployment's working set (a few topologies × a few dtype
 # stages), small enough that abandoned topologies don't pin device memory
@@ -65,41 +67,57 @@ def _stage(quant) -> str:
 
 def _prepared(data, graph, quant, device: torch.device) -> _Prepared:
     """Device tensors for ``(data, graph)`` under a staging mode, LRU-cached
-    on host-object identity."""
+    on object identity; a build's live state (a graph tensor,
+    :func:`is_live`) is taken as it is at this call and cached nothing for,
+    since the build mutates it between calls and the identity cache would
+    hand back a stale copy."""
     stage = _stage(quant)
+    live = is_live(graph)
     key = (id(data), id(graph), stage, str(device))
-    with _PREP_LOCK:
-        hit = _PREP_CACHE.get(key)
-        if hit is not None and hit.host_x is data and hit.host_graph is graph:
-            _PREP_CACHE.move_to_end(key)
-            return hit
-    if stage == "bf16":
+    if not live:
+        with _PREP_LOCK:
+            hit = _PREP_CACHE.get(key)
+            if (hit is not None and hit.host_x is data
+                    and hit.host_graph is graph):
+                _PREP_CACHE.move_to_end(key)
+                return hit
+    if isinstance(data, torch.Tensor):
+        x = data.to(torch.bfloat16 if stage == "bf16" else
+                    torch.uint8 if stage == "u8" else torch.float32)
+    elif stage == "bf16":
         x = torch.as_tensor(data).to(torch.bfloat16)
     elif stage == "u8":
         x = torch.from_numpy(np.ascontiguousarray(data, np.uint8))
     else:
         x = torch.from_numpy(np.ascontiguousarray(data, np.float32))
-    x = x.contiguous().to(device)
+    x = x.to(device).contiguous()
+    g = graph if isinstance(graph, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(graph, np.int32))
     entry = _Prepared(
         host_x=data, host_graph=graph, x=x,
-        graph=torch.from_numpy(
-            np.ascontiguousarray(graph, np.int32)).to(device),
+        graph=g.to(device=device, dtype=torch.int32).contiguous(),
         aux=_beam.beam_aux(x) if x.is_cuda else None,
     )
-    with _PREP_LOCK:
-        _PREP_CACHE[key] = entry
-        while len(_PREP_CACHE) > _CACHE_CAP:
-            _PREP_CACHE.popitem(last=False)
+    if not live:
+        with _PREP_LOCK:
+            _PREP_CACHE[key] = entry
+            while len(_PREP_CACHE) > _CACHE_CAP:
+                _PREP_CACHE.popitem(last=False)
     return entry
 
 
 def _prep_queries(queries, quant, device):
-    """(queries on the device in the stage's dtype, scale, zp)."""
+    """(queries on the device in the stage's dtype, scale, zp); numpy or a
+    tensor in."""
     if isinstance(quant, QuantSpec):
+        if isinstance(queries, torch.Tensor):
+            queries = queries.detach().float().cpu().numpy()
         q = torch.from_numpy(quant.quantize(queries)).to(device)
         return q, float(np.float32(quant.scale)), float(
             np.float32(quant.zero_point))
-    q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(device)
+    q = queries if isinstance(queries, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(queries, np.float32))
+    q = q.to(device=device, dtype=torch.float32).contiguous()
     if quant == "bf16":
         q = q.to(torch.bfloat16)
     return q, 0.0, 0.0
@@ -120,8 +138,9 @@ def fused_beam_search(
     metric: str = "l2", n_real: int | None = None, quant=None,
     device: torch.device,
 ) -> tuple[np.ndarray, np.ndarray, SearchStats]:
-    """The beam_fn protocol over the fused engine: numpy in/out, stats
-    summed over the first ``n_real`` queries (all when None)."""
+    """The beam_fn protocol over the fused engine: stats summed over the
+    first ``n_real`` queries (all when None).  numpy in, numpy out; a
+    build's live state in (:func:`is_live`), tensors out on ``device``."""
     n_iters = _beam.default_n_iters(width) if n_iters is None else n_iters
     prep = _prepared(data, graph, quant, device)
     q, scale, zp = _prep_queries(queries, quant, device)
@@ -136,6 +155,8 @@ def fused_beam_search(
         n_hops=_sum(hops, n_real),
         n_quantized_distance_computations=nd if quant is not None else 0,
     )
+    if is_live(graph):
+        return ids.long(), ds, stats
     return (ids.cpu().numpy().astype(np.int64), ds.cpu().numpy(), stats)
 
 

@@ -387,6 +387,16 @@ def as_topology(index_or_shards, data=None, *, metric: str = "l2") -> Topology:
     )
 
 
+def is_live(graph) -> bool:
+    """Whether a beam runs on a build's live state: a graph given as a
+    tensor, which the build mutates in place between calls.  Every beam_fn
+    then reads the graph (and the store beside it) as they are at the call,
+    caches nothing for them, and returns tensors on its device.  Host
+    graphs go through the residency cache and come back as numpy (their
+    store may still be a tensor: the topologies' cached bf16 views)."""
+    return isinstance(graph, torch.Tensor)
+
+
 def drop_tombstones(ids: np.ndarray, tombstones: np.ndarray,
                     k: int) -> np.ndarray:
     """Filter deleted ids out of beam-ordered candidate rows.

@@ -1,6 +1,9 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor the ``repro``
-package, and its entry points run on the card unless the CPU is asked for —
-without CUDA they raise instead of carrying on quietly on the CPU."""
+package (the subprocess below imports every module of the port's search,
+build and data paths, builds a DiskANN index and searches it on the
+``torch`` and ``numpy`` backends), and its entry points run on the card
+unless the CPU is asked for — without CUDA they raise instead of carrying
+on quietly on the CPU."""
 
 import os
 import subprocess
@@ -30,6 +33,17 @@ ids2, _ = search(res.shard_topology(ds.data), ds.queries, 5, width=16,
                  nprobe="auto", device="cpu")
 assert ids.shape == ids2.shape == (8, 5) and stats.n_queries == 8
 assert recall_at(ids, ds.gt, 5) > 0.5
+
+import repro_torch.core.search, repro_torch.data.pipeline
+from repro_torch.core import build_diskann
+from repro_torch.data.formats import read_bin, write_bin
+from repro_torch.search import beam_search
+
+dk = build_diskann(ds.data, cfg, device="cpu")
+for backend in ("torch", "numpy"):
+    ids3, _ = dk.search(ds.data, ds.queries, 5, backend=backend, width=16,
+                        device="cpu")
+    assert ids3.shape == (8, 5) and recall_at(ids3, ds.gt, 5) > 0.5
 
 import torch
 from repro_torch.configs.base import get_arch, smoke_config
@@ -72,7 +86,8 @@ def test_package_sources_never_name_jax_or_reference():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.configs.base import IndexConfig
-    from repro_torch.core.builder import build_scalegann
+    from repro_torch.core.builder import build_diskann, build_scalegann
+    from repro_torch.core.vamana import build_shard_index_vamana
     from repro_torch.data.synthetic import make_clustered
     from repro_torch.search import search, topology_from_arrays
 
@@ -91,6 +106,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                           build_degree=8))
     with pytest.raises(RuntimeError, match="CUDA"):
         make_clustered(64, 8, n_queries=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search(topo, data[:2], 2, backend="torch")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_diskann(data, IndexConfig(n_clusters=2, degree=4,
+                                        build_degree=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_shard_index_vamana(data, IndexConfig(degree=4, build_degree=8))
     assert resolve_device("cpu").type == "cpu"
 
 
