@@ -34,7 +34,24 @@
    own inputs (time and bound summed by range of Q).
 4. A small index searched on the card and on the CPU's plain path: the
    same ids and stats (uint8 exact).
-5. DiskANN path, counters zeroed just before and read just after:
+5. Serving phase over step 2's index (``ds``, ``merged``, ``split``),
+   counters zeroed just before each trial's traffic and read just after:
+   a batch-1 baseline of 1,000 blocking ``search()`` calls (merged, f32,
+   k=10, width=64); ``AnnServer`` on the card over ``merged`` (max_batch
+   64, max_wait_ms 2) under 10,000 open-loop Poisson requests at 4x the
+   baseline's QPS, each backdated to its scheduled arrival, with
+   ``swap_topology`` at the 5,000th; the same server with all 10,000
+   submitted at once (capacity); and a traced server over ``split``
+   (nprobe=2, uint8 one request in two, nprobe="auto" one in five) under
+   2,000 Poisson requests at the merged trial's rate.  Each trial gates on
+   no failed, rejected or shed request, no signature first seen after
+   warm-up, no kernel build and no device-copy upload during traffic, and
+   the stats' Prometheus round trip; served ids are held to one direct
+   ``search()`` per option group (uint8 equal, f32 99.9% with near-ties
+   only); the split trace must validate and cover each request's latency;
+   K1, K2 and K3 must launch in the split trial.  Also the cost of a
+   swap's uint8 view and ``BuildResult.feed_metrics``' phase gauges.
+6. DiskANN path, counters zeroed just before and read just after:
    ``make_clustered(vamana_n, 128, n_queries=2000, seed=1)`` written to a
    BIGANN ``.fbin`` and memmapped back, ``build_diskann`` (uniform ω=2,
    Vamana R=64, L=128 per shard; every round one K3 launch at Q=256,
@@ -48,7 +65,7 @@
    uint8 exact, f32 99.9% of ids), one Vamana round's prune and reverse
    edges on the card against the CPU on integer points (equal), and K3 at
    the build shape against its plain version (ids and counters on 99.9%).
-6. LM main path, counters zeroed just before and read just after:
+7. LM main path, counters zeroed just before and read just after:
    TinyLlama-1.1B at full width (22 layers, d_model 2048, GQA 32/4) with
    seeded random weights in bf16, ``ServeEngine`` with 8 slots and
    max_len 2048 serving 12 greedy requests (prompts of 512–1024 tokens,
@@ -56,7 +73,7 @@
    wave, K6 once per layer and decode step.  Then one prefill and three
    decode steps under torch.profiler: host wall time against device busy
    time, and the kernels that take it.
-7. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
+8. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
    shape of the LM path (ragged last tiles), at head dims 16, 32 and 128,
    non-causal, S < T and GQA groups 1 and 8 (with the share of outputs
    bit-equal to the plain version), then at q [8,32,1024,64], k/v
@@ -70,7 +87,7 @@
    included.  SDPA is timed as the yardstick.  K6's scratch, kept per
    stream: grown between launches back to back, used by a captured CUDA
    graph on new inputs, and refused when a capture would need more.
-8. The small TinyLlama config in f32, prefill and 4 decode steps on the
+9. The small TinyLlama config in f32, prefill and 4 decode steps on the
    card and on the CPU's plain path: logits to 1e-4, greedy tokens equal.
 
 Prints one ``{"kernels": [...]}`` line, then the card's line, then
@@ -173,7 +190,9 @@ def environment(torch):
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
     from repro_torch.kernels import build_all
+    from repro_torch.telemetry import install_compile_listener
 
+    install_compile_listener()  # nvcc runs feed kernel_builds_total
     t0 = time.perf_counter()
     logs = build_all()
     log(f"kernel build {time.perf_counter() - t0:.3f} s "
@@ -213,7 +232,7 @@ def main_path(torch, args):
     from repro_torch.configs.base import IndexConfig
     from repro_torch.core.builder import build_scalegann
     from repro_torch.data.synthetic import make_clustered, recall_at
-    from repro_torch.kernels import LAUNCHES, reset_counts
+    from repro_torch.kernels import reset_counts
     from repro_torch.search import search
 
     reset_counts()
@@ -251,7 +270,7 @@ def main_path(torch, args):
             f"hops/q={pq['hops']:.1f}")
         need(ids.shape == (len(ds.queries), 10), "search output shape")
         results[(kind, nprobe, dtype)] = rec
-    launches = {name: LAUNCHES[name] for name in ANN_KERNELS}
+    launches = ann_counts()
     log(f"main-path launches {json.dumps(launches)}")
     for name, count in launches.items():
         need(count > 0, f"kernel {name} was not launched on the main path")
@@ -825,12 +844,324 @@ def check_small_against_cpu(torch):
                      "from the CPU beyond near-ties")
 
 
+def registry_sum(name: str) -> float:
+    """Sum of a metric family's series in the process-wide registry."""
+    from repro_torch.telemetry import current_registry
+
+    fam = current_registry().snapshot().get(name, {"series": []})
+    return float(sum(s.get("value", 0.0) for s in fam["series"]))
+
+
+def ann_counts() -> dict:
+    from repro_torch.kernels import LAUNCHES
+
+    return {name: LAUNCHES[name] for name in ANN_KERNELS}
+
+
+async def poisson_load(srv, queries, n: int, rate, seed: int, *,
+                       overrides=None, swap=None):
+    """Open-loop arrivals at ``rate`` a second (exponential gaps from
+    ``seed``), each request backdated to its scheduled arrival; ``rate``
+    None submits all ``n`` at once.  ``overrides(j)`` gives request j's
+    options; ``swap = (j, fn)`` calls ``fn()`` just before request j.
+    Returns ``(j, options, QueryResult)`` for every request."""
+    import asyncio
+
+    import numpy as np
+
+    gaps = (np.random.default_rng(seed).exponential(1.0 / rate, size=n)
+            if rate else np.zeros(n))
+    futs = []
+    t_next = time.monotonic()
+    for j in range(n):
+        t_next += gaps[j]
+        delay = t_next - time.monotonic()
+        if delay > 0:
+            await asyncio.sleep(delay)
+        if swap is not None and j == swap[0]:
+            swap[1]()
+        kw = overrides(j) if overrides else {}
+        futs.append((j, kw, srv.submit_nowait(queries[j], t_submit=t_next,
+                                              **kw)))
+    outs = await asyncio.gather(*(f for _, _, f in futs))
+    return [(j, kw, o) for (j, kw, _), o in zip(futs, outs)]
+
+
+def stats_round_trip(st) -> bool:
+    """``parse_prometheus(to_prometheus())`` gives back the counters."""
+    from repro_torch.telemetry import parse_prometheus
+
+    p = parse_prometheus(st.to_prometheus())
+    f = frozenset
+    want = {
+        ("serving_requests_total", f({("outcome", "completed")})):
+            st.n_completed,
+        ("serving_requests_total", f({("outcome", "failed")})): st.n_failed,
+        ("serving_engine_batches_total", f()): st.n_batches,
+        ("serving_engine_lanes_total", f({("kind", "real")})):
+            st.n_served_lanes,
+        ("serving_engine_lanes_total", f({("kind", "padded")})):
+            st.n_padded_lanes,
+        ("serving_distance_computations_total", f({("stage", "total")})):
+            st.dist_comps,
+        ("serving_distance_computations_total", f({("stage", "rerank")})):
+            st.rerank_comps,
+        ("serving_hops_total", f()): st.hops,
+        ("serving_engine_time_seconds_total", f()): st.batch_time_s,
+        ("serving_request_latency_seconds_count", f()): st.n_completed,
+    }
+    return all(p.get(key) == v for key, v in want.items())
+
+
+def serve_trial(torch, name, topo, cfg, queries, n, rate, seed, *,
+                overrides=None, swap=None, tracer=None, time_k3=False):
+    """One trial: start an ``AnnServer`` on the card, wait out its warm-up
+    with one request, then offer ``n`` requests and read the server's
+    stats over them; ``time_k3`` adds K3's device time from CUDA events
+    around each of its launches (two event records a launch).  Gates on no
+    failed, rejected or shed request, no signature first seen after
+    warm-up, no kernel build and no device-copy upload during the traffic,
+    and on the stats' Prometheus round trip."""
+    import asyncio
+
+    from repro_torch.kernels import reset_counts
+    from repro_torch.serving import AnnServer, ServerStats
+
+    async def run():
+        srv = AnnServer(topo, cfg, tracer=tracer)
+        async with srv:
+            t0 = time.perf_counter()
+            await srv.submit(queries[0])  # served after the warm-up
+            warm_s = time.perf_counter() - t0
+            warm_stats, srv.stats = srv.stats, ServerStats()
+            before = (registry_sum("kernel_builds_total"),
+                      registry_sum("search_device_uploads_total"))
+            reset_counts()
+            timer = k3_timer(torch) if time_k3 else contextlib.nullcontext(
+                ([], {}))
+            with timer as (events, _):
+                out = await poisson_load(
+                    srv, queries, n, rate, seed, overrides=overrides,
+                    swap=None if swap is None else (swap[0],
+                                                   lambda: swap[1](srv)))
+            launches = ann_counts()
+            moved = (registry_sum("kernel_builds_total") - before[0],
+                     registry_sum("search_device_uploads_total") - before[1])
+        torch.cuda.synchronize()
+        k3_ms = sum(a.elapsed_time(b) for a, b in events)
+        return srv, warm_stats, warm_s, out, launches, moved, k3_ms
+
+    srv, warm_stats, warm_s, out, launches, moved, k3_ms = asyncio.run(run())
+    st = srv.stats
+    snap = st.snapshot()
+    post_warm = sum(
+        s["value"] for reg in (warm_stats.registry, st.registry)
+        for s in reg.snapshot().get("serving_post_warm_signatures_total",
+                                    {"series": []})["series"])
+    row = {
+        "trial": name, "requests": n, "offered_qps": rate,
+        "served_qps": snap["qps"], "latency_ms": snap["latency_ms"],
+        "queue_wait_ms": snap["queue_wait_ms"],
+        "engine_service_ms": snap["engine_service_ms"],
+        "mean_occupancy": snap["batch_occupancy"]["mean"],
+        "padding_fraction": snap["padding_fraction"],
+        "batches": snap["n_batches"],
+        "engine_ms_per_batch": snap["engine_time_ms_per_batch"],
+        "warm_up_s": warm_s, "launches": launches,
+        "k3_device_ms": k3_ms if time_k3 else None,
+        "k3_share_of_engine": (k3_ms / 1e3 / st.batch_time_s
+                               if time_k3 else None),
+        "kernel_builds_total": registry_sum("kernel_builds_total"),
+        "kernel_builds_during_traffic": moved[0],
+        "device_uploads_during_traffic": moved[1],
+        "post_warm_signatures": post_warm,
+    }
+    for s in (warm_stats, st):
+        need(s.n_failed == 0 and s.n_rejected == 0 and s.n_shed == 0,
+             f"serving {name}: {s.n_failed} failed, {s.n_rejected} "
+             f"rejected, {s.n_shed} shed")
+    need(st.n_completed == n, f"serving {name}: {st.n_completed} of {n} "
+         "requests completed")
+    need(post_warm == 0, f"serving {name}: {post_warm} engine-call "
+         "signatures first seen after warm-up")
+    need(moved[0] == 0, f"serving {name}: {moved[0]} kernel builds during "
+         "traffic")
+    need(moved[1] == 0, f"serving {name}: {moved[1]} device-copy uploads "
+         "after warm-up")
+    need(stats_round_trip(st), f"serving {name}: the Prometheus text does "
+         "not round-trip the stats' counters")
+    return srv, row, out
+
+
+def check_served_ids(torch, name, topo, cfg, data, queries, out):
+    """Served ids against one direct ``search()`` per option group on the
+    same queries with the same options: uint8 equal; f32 on 99.9% of ids,
+    every differing id a near-tie within 1e-5 (K3 at another batch size
+    may sum in another order)."""
+    import numpy as np
+
+    from repro_torch.search import search
+
+    groups = collections.defaultdict(list)
+    for j, kw, res in out:
+        groups[tuple(sorted(kw.items()))].append((j, res.ids))
+    x = torch.from_numpy(np.ascontiguousarray(data, np.float32)).cuda()
+    for key, rows in sorted(groups.items(), key=repr):
+        js = np.array([j for j, _ in rows])
+        got = np.stack([ids for _, ids in rows])
+        opts = {"nprobe": cfg.nprobe, "dtype": cfg.dtype, **dict(key)}
+        want, _ = search(topo, queries[js], cfg.k, width=cfg.width,
+                         n_entries=cfg.n_entries, rerank=cfg.rerank, **opts)
+        agree = float((got == want).mean())
+        bad = near_ties(torch, torch.from_numpy(queries[js]).cuda(), x,
+                        torch.from_numpy(got).cuda(),
+                        torch.from_numpy(want).cuda(), 1e-5)
+        log(f"serving {name} ids {opts} requests={len(js)} agreement "
+            f"with a direct search={agree:.6f} differing beyond a 1e-5 "
+            f"near-tie={bad}")
+        if opts["dtype"] == "uint8":
+            need(agree == 1.0, f"serving {name}: uint8 ids differ from a "
+                 "direct search")
+        else:
+            need(agree >= 0.999 and bad == 0, f"serving {name}: f32 ids "
+                 "differ from a direct search beyond near-ties")
+
+
+def served_recall(out, gt) -> float:
+    import numpy as np
+
+    from repro_torch.data.synthetic import recall_at
+
+    js = np.array([j for j, _, _ in out])
+    return recall_at(np.stack([r.ids for _, _, r in out]), gt[js], 10)
+
+
+def serving_path(torch, ds, res, merged, split):
+    """The micro-batching server on the card over the main path's 1M index
+    (the docstring's step 5).  Returns the launches of K1, K2 and K3 over
+    the four trials' traffic, counted from zero for each trial."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import recall_at
+    from repro_torch.kernels import reset_counts
+    from repro_torch.search import search
+    from repro_torch.serving import ServingConfig
+    from repro_torch.telemetry import (Tracer, check_serving_trace,
+                                       validate_chrome_trace)
+
+    k, width = 10, 64
+    q = np.ascontiguousarray(ds.queries)
+    total = collections.Counter()
+
+    # 1. the batch-1 baseline: one blocking search() a query
+    search(merged, q[:1], k, width=width)
+    reset_counts()
+    n1 = min(1000, len(q))
+    ids1 = np.empty((n1, k), np.int64)
+    t0 = time.perf_counter()
+    for j in range(n1):
+        ids1[j] = search(merged, q[j:j + 1], k, width=width)[0][0]
+    wall = time.perf_counter() - t0
+    total.update(ann_counts())
+    qps1 = n1 / wall
+    log("serving batch1 " + json.dumps({
+        "requests": n1, "qps": qps1, "mean_latency_ms": wall / n1 * 1e3,
+        "recall_at_10": recall_at(ids1, ds.gt[:n1], 10)}))
+    rate = 4.0 * qps1
+
+    # 2. merged: Poisson arrivals at 4x the batch-1 QPS, a swap at 5,000
+    cfg = ServingConfig(backend="fused", k=k, width=width, max_batch=64,
+                        max_wait_ms=2.0)
+    srv, row, out = serve_trial(
+        torch, "merged", merged, cfg, q, len(q), rate, 2, time_k3=True,
+        swap=(len(q) // 2, lambda s: s.swap_topology(res.topology(ds.data),
+                                                     reason="churn")))
+    total.update(row["launches"])
+    row["recall_at_10"] = served_recall(out, ds.gt)
+    gen = srv.stats.registry.snapshot()["serving_topology_generation"]
+    row["topology_generation"] = gen["series"][0]["value"]
+    log("serving merged " + json.dumps(row))
+    need(row["topology_generation"] == 1, "the topology_generation gauge "
+         f"reads {row['topology_generation']} after one swap")
+    check_served_ids(torch, "merged", merged, cfg, ds.data, q, out)
+
+    # what a swap costs: the uint8 view is per topology object
+    new = res.topology(ds.data)
+    t0 = time.perf_counter()
+    new.quant_view("uint8")
+    quant_s = time.perf_counter() - t0
+    ups = registry_sum("search_device_uploads_total")
+    t0 = time.perf_counter()
+    search(new, q[:64], k, width=width, dtype="uint8")
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    search(new, q[:64], k, width=width, dtype="uint8")
+    log(f"serving swap cost, the uint8 view of a new merged topology: "
+        f"quantize {quant_s:.4f} s, then a 64-query search "
+        f"{first_s * 1e3:.3f} ms with "
+        f"{registry_sum('search_device_uploads_total') - ups:.0f} upload, "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms once cached")
+    del new
+
+    # 3. saturation: all 10,000 at once
+    srv, row, out = serve_trial(
+        torch, "saturation", merged, dataclasses.replace(cfg, max_pending=len(q)),
+        q, len(q), None, 3)
+    total.update(row["launches"])
+    row["recall_at_10"] = served_recall(out, ds.gt)
+    log("serving saturation " + json.dumps(row))
+    check_served_ids(torch, "saturation", merged, cfg, ds.data, q, out)
+
+    # 4. split, traced: uint8 one request in two, nprobe="auto" one in five
+    def overrides(j):
+        kw = {"dtype": "uint8"} if j % 2 else {}
+        if j % 5 == 0:
+            kw["nprobe"] = "auto"
+        return kw
+
+    tracer = Tracer(clock=time.monotonic)
+    scfg = ServingConfig(backend="fused", k=k, width=width, nprobe=2,
+                         pretrace_dtypes=("uint8",),
+                         pretrace_nprobes=("auto",))
+    srv, row, out = serve_trial(torch, "split", split, scfg, q,
+                                min(2000, len(q)), rate, 4,
+                                overrides=overrides, tracer=tracer,
+                                time_k3=True)
+    total.update(row["launches"])
+    row["recall_at_10"] = served_recall(out, ds.gt)
+    log("serving split " + json.dumps(row))
+    for name in ANN_KERNELS[:3]:
+        need(row["launches"][name] > 0, f"kernel {name} was not launched "
+             "in the split serving trial")
+    check_served_ids(torch, "split", split, scfg, ds.data, q, out)
+    obj = tracer.to_chrome()
+    errs = validate_chrome_trace(obj)
+    chk = check_serving_trace(obj, min_coverage=0.95)
+    log(f"serving split trace: {len(obj['traceEvents'])} events, schema "
+        f"errors {len(errs)}, {json.dumps(chk)}")
+    need(not errs, f"the served trace is not valid: {errs[:3]}")
+    need(chk["ok"] and chk["min_coverage_seen"] >= 0.95,
+         "the served trace does not cover each request's latency")
+
+    phases = {s["labels"]["phase"]: s["value"] for s in
+              res.feed_metrics().snapshot()["build_phase_seconds"]["series"]}
+    log(f"build metrics: build_phase_seconds {json.dumps(phases)} "
+        f"(build_only_s {res.build_only_s:.3f}, wall_build_s "
+        f"{res.wall_build_s:.3f})")
+    need(phases == {"partition": res.partition_s,
+                    "shards": res.wall_build_s, "merge": res.merge_s},
+         "feed_metrics' build_phase_seconds differ from the build's")
+    launches = {name: total[name] for name in ANN_KERNELS}
+    log("serving launches " + json.dumps(launches))
+    return launches
+
+
 @contextlib.contextmanager
-def k3_build_timer(torch, pool: int):
-    """Time every K3 launch at the Vamana build shape (k == width == the
-    pool) with CUDA events around the C launch alone (the wrapper's checks
-    stay outside), beside (not instead of) its launch counter, and keep the
-    first such launch's inputs."""
+def k3_timer(torch, pool: int | None = None):
+    """Time every K3 launch — with ``pool``, only those at the Vamana build
+    shape (k == width == pool) — with CUDA events around the C launch
+    alone (the wrapper's checks stay outside), beside (not instead of) its
+    launch counter, and keep the first such launch's inputs."""
     from repro_torch.kernels import beam
 
     events: list = []
@@ -841,7 +1172,7 @@ def k3_build_timer(torch, pool: int):
     c_launch = lib.repro_fused_beam
 
     def timed(x, graph, entries, queries, k, **kw):
-        if k != pool or kw.get("width") != pool:
+        if pool is not None and (k != pool or kw.get("width") != pool):
             return launch(x, graph, entries, queries, k, **kw)
         first.setdefault("args", ((x, graph, entries, queries, k), kw))
         on[0] = True
@@ -886,7 +1217,7 @@ def diskann_path(torch, args):
     from repro_torch.core.builder import build_diskann
     from repro_torch.data import formats
     from repro_torch.data.synthetic import make_clustered, recall_at
-    from repro_torch.kernels import LAUNCHES, beam, reset_counts
+    from repro_torch.kernels import beam, reset_counts
     from repro_torch.search import search
     from repro_torch.telemetry import collect_stages
 
@@ -905,7 +1236,7 @@ def diskann_path(torch, args):
     log(f"diskann data n={args.vamana_n} d=128 queries=2000 written to "
         f"{path.relative_to(ROOT)} ({path.stat().st_size} bytes) and "
         f"memmapped back {time.perf_counter() - t0:.3f} s")
-    with k3_build_timer(torch, pool) as (events, first), \
+    with k3_timer(torch, pool) as (events, first), \
             collect_stages() as stages:
         res = build_diskann(data, cfg)
     torch.cuda.synchronize()
@@ -961,7 +1292,7 @@ def diskann_path(torch, args):
     agree = float((found["fused"] == found["torch"]).mean())
     log(f"diskann fused vs torch f32 id agreement {agree:.6f}")
     need(agree >= 0.999, "fused and torch disagree on the DiskANN index")
-    launches = {name: LAUNCHES[name] for name in ANN_KERNELS}
+    launches = ann_counts()
     log(f"diskann-path launches {json.dumps(launches)}")
     for name in ("pairwise_distance", "fused_beam", "knn"):
         need(launches[name] > 0, f"kernel {name} was not launched on the "
@@ -1577,6 +1908,10 @@ def main(argv=None) -> int:
     k3_by_q(torch, k3_shapes, k3_first)
     del k3_first
     check_small_against_cpu(torch)
+    t0 = time.perf_counter()
+    for name, count in serving_path(torch, ds, res, merged, split).items():
+        rows[name]["launches"] += count
+    log(f"serving phase {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     dk_ds, dk_res, dk_topo, dk_first, dk_launches = diskann_path(torch, args)
     for name, count in dk_launches.items():

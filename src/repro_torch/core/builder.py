@@ -88,6 +88,42 @@ class BuildResult:
     def overall_s(self) -> float:
         return self.partition_s + self.wall_build_s + self.merge_s
 
+    def feed_metrics(self, registry=None):
+        """Feed this build's aggregates into a
+        :class:`~repro_torch.telemetry.MetricsRegistry` (a fresh one by
+        default) and return it, under the reference's names and labels:
+        the build result is the source of truth, the registry its
+        exposition.  Metrics are labeled by ``system`` so several builds
+        can share one registry."""
+        from repro_torch.telemetry import MetricsRegistry
+
+        reg = registry if registry is not None else MetricsRegistry()
+        sys_ = self.name
+        reg.counter("build_shards_total", "shards built",
+                    system=sys_).inc(len(self.shards))
+        reg.counter("build_distance_computations_total",
+                    "distance computations spent building",
+                    system=sys_).inc(self.n_distance_computations)
+        if self.shard_attempts:
+            reg.counter("build_shard_attempts_total",
+                        "shard build attempts including retries",
+                        system=sys_).inc(sum(self.shard_attempts))
+        phase = "build_phase_seconds"
+        phelp = "wall seconds per build phase"
+        reg.gauge(phase, phelp, system=sys_,
+                  phase="partition").set(self.partition_s)
+        reg.gauge(phase, phelp, system=sys_,
+                  phase="shards").set(self.wall_build_s)
+        reg.gauge(phase, phelp, system=sys_,
+                  phase="merge").set(self.merge_s)
+        reg.gauge("build_overall_seconds", "partition + shards + merge",
+                  system=sys_).set(self.overall_s)
+        h = reg.histogram("build_shard_seconds",
+                          "per-shard build wall time", system=sys_)
+        for s in self.per_shard_s:
+            h.observe(s)
+        return reg
+
     def topology(self, data: np.ndarray, *, metric: str = "l2"):
         """The search topology this build serves: the merged graph, or the
         centroid-routed shards of a split-only build."""

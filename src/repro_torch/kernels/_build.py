@@ -7,7 +7,10 @@ rebuilds and an unchanged source is reused.  The library is loaded with
 ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Launch counters are plain integers: each wrapper calls :func:`count` right
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else.  Each ``nvcc`` run is
+reported to :data:`on_build`, a hook that
+:func:`repro_torch.telemetry.install_compile_listener` installs (this module
+imports nothing of telemetry).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -37,6 +41,9 @@ LAUNCHES: dict[str, int] = {
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+# called as on_build(source, seconds) after every nvcc run, failed ones too
+on_build = None
 
 
 def count(name: str) -> None:
@@ -80,12 +87,15 @@ def build_all(names=SOURCES) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     logs: dict[str, str] = {}
     with _LOCK:
+        t0 = time.perf_counter()
         running = [(n, *_start(n)) for n in names
                    if n not in _LIBS and not _lib_path(n).exists()]
         failed = []
         for name, proc, tmp, out in running:
             log, _ = proc.communicate()
             logs[name] = log
+            if on_build is not None:  # all start at t0, each ends by now
+                on_build(name, time.perf_counter() - t0)
             if proc.returncode != 0:
                 failed.append(f"{name}.cu:\n{log}")
                 tmp.unlink(missing_ok=True)

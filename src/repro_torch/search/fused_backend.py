@@ -12,7 +12,11 @@ What lives here rather than in the kernel module:
     entry holds a strong reference to its host arrays, so an ``id`` cannot
     be recycled while it is cached.  The topologies cache their storage
     views, so steady-state serving presents the same host objects call
-    after call.
+    after call.  Every upload of a host pair counts in
+    ``search_device_uploads_total{stage}`` of the current metrics
+    registry.  :func:`warm` uploads a topology's whole working set at
+    given dtypes and raises the cache's cap to hold it (a split topology
+    of 16 shards served at two stages needs 32 entries).
   * **The beam_fn protocol** (:func:`fused_beam_search`) for the shared
     ``run_merged`` / ``run_split`` search loops and :func:`repro_torch.search
     .beam_pool`: numpy in and out, ``n_real`` stats slicing, ``quant``
@@ -38,9 +42,11 @@ from repro_torch.search.types import (DEFAULT_RERANK, MergedTopology,
                                       NprobeSpec, QuantSpec, SearchStats,
                                       ShardTopology, is_live, run_merged,
                                       run_split)
+from repro_torch.telemetry.metrics import current_registry
 
-# a serving deployment's working set (a few topologies × a few dtype
-# stages), small enough that abandoned topologies don't pin device memory
+# a few topologies × a few dtype stages, small enough that abandoned
+# topologies don't pin device memory; warm() raises it to the largest
+# working set a caller has warmed
 _CACHE_CAP = 16
 
 
@@ -90,6 +96,12 @@ def _prepared(data, graph, quant, device: torch.device) -> _Prepared:
         x = torch.from_numpy(np.ascontiguousarray(data, np.uint8))
     else:
         x = torch.from_numpy(np.ascontiguousarray(data, np.float32))
+    if not live:
+        current_registry().counter(
+            "search_device_uploads_total",
+            "host arrays the fused backend copied to its device cache",
+            stage=stage,
+        ).inc()
     x = x.to(device).contiguous()
     g = graph if isinstance(graph, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(graph, np.int32))
@@ -104,6 +116,42 @@ def _prepared(data, graph, quant, device: torch.device) -> _Prepared:
             while len(_PREP_CACHE) > _CACHE_CAP:
                 _PREP_CACHE.popitem(last=False)
     return entry
+
+
+def warm(topo, dtypes, device: torch.device) -> int:
+    """Upload every device copy that searches of ``topo`` at ``dtypes``
+    read — the store and graph of each stage, every shard of a split
+    topology, the exact store a fused merged re-rank reads — and raise the
+    cache's cap to hold them all at once (it never falls).  Returns the
+    size of that working set."""
+    pairs = []
+    for dtype in dtypes:
+        if isinstance(topo, MergedTopology):
+            graph = topo.index.graph
+            pairs.append((topo.data, graph, None))
+            if dtype != "f32":
+                store, spec = topo.quant_view(dtype)
+                pairs.append((store, graph,
+                              spec if spec is not None else dtype))
+            continue
+        views = (topo.shard_store() if dtype == "f32"
+                 else topo.shard_quant(dtype))
+        for s, graph in enumerate(topo.shard_graphs):
+            if len(topo.shard_ids[s]) == 0:
+                continue
+            if dtype == "f32":
+                pairs.append((views[s], graph, None))
+            else:
+                store, spec = views[s]
+                pairs.append((store, graph,
+                              spec if spec is not None else dtype))
+    n = len({(id(x), id(g), _stage(q)) for x, g, q in pairs})
+    global _CACHE_CAP
+    with _PREP_LOCK:
+        _CACHE_CAP = max(_CACHE_CAP, n)
+    for x, g, q in pairs:
+        _prepared(x, g, q, device)
+    return n
 
 
 def _prep_queries(queries, quant, device):

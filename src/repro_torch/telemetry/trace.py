@@ -1,12 +1,43 @@
-"""Span tracer and stage accumulator (a copy of ``repro/telemetry/trace.py``,
-which is framework-free).
+"""Hierarchical span tracer with Chrome/Perfetto trace-event export (a
+copy of ``repro/telemetry/trace.py``, which is framework-free: under a
+:class:`ManualClock` the same calls export byte-equal JSON).
 
-The search and build paths open spans on :func:`current_tracer` (the no-op
-:data:`NULL_TRACER` unless one is installed) and report the re-rank
-epilogue's wall time through :func:`record_stage` to an enclosing
-:func:`collect_stages` block.  Disabled is free: hot paths gate on
-``tracer.enabled``.  A :class:`Tracer` exports Chrome/Perfetto trace-event
-JSON.
+One :class:`Tracer` records a whole run — a build (partition → shard
+builds → merge, with the kernels' ``nvcc`` builds on the ``jit`` track)
+or a serving session (submit → queue → batch flush → engine dispatch →
+re-rank → future resolution) — onto named **tracks** that render as rows
+on a single timeline in ``chrome://tracing`` / https://ui.perfetto.dev.
+
+Design rules, in priority order:
+
+* **Disabled is free.**  The default recorder is :data:`NULL_TRACER`
+  (``enabled=False``); hot paths gate their telemetry on one
+  ``if tracer.enabled`` branch and pay *nothing* else — no allocation,
+  no clock read (the tests pin zero allocations on the serving hot-path
+  pattern).
+* **Deterministic under a fake clock.**  The clock is injectable
+  (:class:`ManualClock`); span ids, track ids and export ordering are all
+  derived from call order, so the same call sequence produces the same
+  bytes — span trees are diffable test fixtures, not flaky logs.
+* **Thread-safe.**  Spans opened on different threads interleave freely;
+  the open-span stack is thread-local, the event log append is locked.
+
+Track resolution for a new span/event: explicit ``track=`` argument,
+else the innermost *open* span's track on this thread, else a per-thread
+default (``thread/<name>``).  Nesting in the Chrome export is by time
+containment per track, exactly how the viewers render it; explicit
+``parent`` span ids are additionally recorded in ``args`` for validators.
+
+Two extra surfaces the span stack can't express:
+
+* :meth:`Tracer.async_complete` — Chrome *async* (``ph: b/e``) event
+  pairs keyed by an id, for overlapping request flows: every served
+  request gets its own ``serve.request`` lane keyed by request id, with
+  queue/batch/engine/rerank child phases under it.
+* :func:`record_stage` / :func:`collect_stages` — a thread-local stage
+  accumulator that lets a deep callee (the exact re-rank epilogue inside
+  a backend driver) report a duration to whoever is timing the enclosing
+  call, without threading a tracer through every signature.
 """
 
 from __future__ import annotations
@@ -18,10 +49,26 @@ import time
 from typing import Any, Callable
 
 __all__ = [
-    "NullTracer", "NULL_TRACER", "Span", "Tracer", "collect_stages",
-    "current_tracer", "record_stage", "set_tracer", "stage_active",
+    "ManualClock", "NullTracer", "NULL_TRACER", "Span", "Tracer",
+    "collect_stages", "current_tracer", "record_stage", "set_tracer",
     "use_tracer",
 ]
+
+
+class ManualClock:
+    """A deterministic fake clock: call it for the time, ``advance`` it
+    explicitly.  Injected into :class:`Tracer` (and the serving layer's
+    ``clock=``) so span trees are byte-stable across runs."""
+
+    def __init__(self, start: float = 0.0):
+        self.t = float(start)
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> float:
+        self.t += float(dt)
+        return self.t
 
 
 class Span:
@@ -96,8 +143,20 @@ class NullTracer:
 
     enabled = False
 
+    def now(self) -> float:
+        return 0.0
+
     def span(self, *a: Any, **kw: Any) -> _NullSpan:
         return _NULL_SPAN
+
+    def instant(self, *a: Any, **kw: Any) -> None:
+        return None
+
+    def complete(self, *a: Any, **kw: Any) -> None:
+        return None
+
+    def async_complete(self, *a: Any, **kw: Any) -> None:
+        return None
 
     def to_chrome(self) -> dict:
         return {"traceEvents": [], "displayTimeUnit": "ms"}
@@ -109,8 +168,11 @@ NULL_TRACER = NullTracer()
 class Tracer:
     """Thread-safe span/event recorder exporting Chrome trace-event JSON.
 
-    ``clock`` must be a monotonic callable returning seconds.
-    ``max_events`` bounds memory on long runs —
+    ``clock`` must be a monotonic callable returning seconds; **every
+    component feeding one tracer must share its time base** (the serving
+    layer aligns its ``clock=`` with the tracer's, the kernel-build
+    listener reads ``tracer.now()``).  ``max_events`` bounds memory on
+    long runs —
     past it new events are dropped and counted (``otherData.dropped`` in
     the export), never blocking the traced workload.
     """
@@ -152,7 +214,7 @@ class Tracer:
 
     def _append(self, name: str, ph: str, track: str | None, t0: float,
                 dur: float | None, args: dict, *, sid: int = -1,
-                parent: int = -1) -> None:
+                parent: int = -1, aid: str | None = None) -> None:
         with self._lock:
             if len(self._events) >= self.max_events:
                 self.n_dropped += 1
@@ -164,6 +226,9 @@ class Tracer:
             }
             if dur is not None:
                 ev["dur"] = round(dur * 1e6, 3)
+            if aid is not None:
+                ev["id"] = aid
+                ev["cat"] = args.pop("cat", "async")
             if sid >= 0:
                 args = dict(args, span_id=sid, parent_id=parent)
             if args:
@@ -172,12 +237,51 @@ class Tracer:
 
     # ---- recording ------------------------------------------------------
 
+    def now(self) -> float:
+        """The tracer's clock — use this for explicit-timestamp emission
+        (:meth:`complete` / :meth:`async_complete`) so all events share
+        one time base."""
+        return self._clock()
+
     def span(self, name: str, *, track: str | None = None,
              **args: Any) -> Span:
         """Open a nested span (context manager).  ``track`` pins the
         timeline row; omitted, it inherits the enclosing span's row (or a
         per-thread default)."""
         return Span(self, name, track, args)
+
+    def instant(self, name: str, *, track: str | None = None,
+                **args: Any) -> None:
+        """A zero-duration marker (preemption notice, kill signal, ...)."""
+        track = self._resolve_track(track)
+        stack = self._stack()
+        parent = stack[-1].sid if stack else -1
+        self._append(name, "i", track, self._clock(), None,
+                     dict(args, s="t"), sid=next(self._ids), parent=parent)
+
+    def complete(self, name: str, t0: float, t1: float, *,
+                 track: str | None = None, **args: Any) -> None:
+        """Emit a finished span post-hoc from explicit ``tracer.now()``
+        readings — for call sites that can't wrap their body in a
+        ``with`` (per-round build telemetry, backoff windows)."""
+        track = self._resolve_track(track)
+        stack = self._stack()
+        parent = stack[-1].sid if stack else -1
+        self._append(name, "X", track, t0, max(t1 - t0, 0.0), dict(args),
+                     sid=next(self._ids), parent=parent)
+
+    def async_complete(self, name: str, aid: Any, t0: float, t1: float, *,
+                       cat: str = "async", track: str = "async",
+                       **args: Any) -> None:
+        """One finished phase of an async flow: a Chrome ``b``/``e`` event
+        pair keyed by ``aid``.  Flows with the same id nest by emission
+        order — emit the parent phase first, children inside.  This is
+        how overlapping per-request lanes render without fighting over
+        one synchronous track."""
+        a = dict(args, cat=cat)
+        self._append(name, "b", track, t0, None, a, aid=str(aid))
+        self._append(name, "e", track, t1, None, {"cat": cat},
+                     aid=str(aid))
 
     # ---- export ---------------------------------------------------------
 
@@ -220,9 +324,11 @@ class Tracer:
 
 # ---- the process-wide current tracer ------------------------------------
 #
-# A plain module global (not a contextvar): shard-build worker threads must
-# see the tracer the driving thread installed, and contextvars don't cross
-# thread-pool boundaries.
+# A plain module global (not a contextvar): build workers and serving
+# executor threads must see the tracer the driving thread installed, and
+# contextvars don't cross thread-pool boundaries.  ``use_tracer`` is for
+# the single-driver cases (scripts, tests); code that owns its own tracer
+# (AnnServer) takes it as a parameter and only *defaults* to the global.
 
 _current: NullTracer | Tracer = NULL_TRACER
 _current_lock = threading.Lock()
@@ -269,7 +375,7 @@ def record_stage(name: str, seconds: float) -> None:
     :func:`collect_stages` on this thread (no-op when none is active).
 
     Lets a deep callee — the exact-f32 re-rank epilogue inside a search
-    loop — surface its share of an enclosing timed call without every
+    driver — surface its share of an enclosing timed call without every
     signature in between growing a telemetry parameter."""
     sink = getattr(_stage_tls, "sink", None)
     if sink is not None:

@@ -1,9 +1,10 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor the ``repro``
 package (the subprocess below imports every module of the port's search,
-build and data paths, builds a DiskANN index and searches it on the
-``torch`` and ``numpy`` backends), and its entry points run on the card
-unless the CPU is asked for — without CUDA they raise instead of carrying
-on quietly on the CPU."""
+build, data, serving and telemetry paths, builds a DiskANN index and
+searches it on the ``torch`` and ``numpy`` backends, and serves one request
+through ``AnnServer``), and its entry points run on the card unless the CPU
+is asked for — without CUDA they raise instead of carrying on quietly on
+the CPU."""
 
 import os
 import subprocess
@@ -58,6 +59,23 @@ assert logits.shape == (2, 256) and bool(torch.isfinite(logits.float()).all())
 reqs = [Request(rid=0, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=3)]
 ServeEngine(lm, params, ServeConfig(max_len=16), device="cpu").generate(reqs)
 assert reqs[0].done and len(reqs[0].output) == 3
+import asyncio
+import repro_torch.serving.policy, repro_torch.serving.queue
+import repro_torch.serving.server, repro_torch.serving.stats
+import repro_torch.telemetry.jit, repro_torch.telemetry.metrics
+import repro_torch.telemetry.trace, repro_torch.telemetry.validate
+from repro_torch.serving import AnnServer, ServingConfig
+
+
+async def serve_one():
+    async with AnnServer(res.topology(ds.data), ServingConfig(k=5, width=16),
+                         device="cpu") as srv:
+        return await srv.submit(ds.queries[0])
+
+out = asyncio.run(serve_one())
+direct, _ = search(res.topology(ds.data), ds.queries[:1], 5, width=16,
+                  device="cpu")
+assert (out.ids == direct[0]).all()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
