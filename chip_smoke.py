@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ``repro_torch`` on one NVIDIA H100.
 
-    python3 chip_smoke.py [--n 1000000] [--queries 10000] [--vamana-n 100000]
+    python3 chip_smoke.py [--n 1000000] [--queries 10000] [--vamana-n 50000]
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
    and the build of the four CUDA sources (one ``nvcc`` per source, in
@@ -51,7 +51,30 @@
    only); the split trace must validate and cover each request's latency;
    K1, K2 and K3 must launch in the split trial.  Also the cost of a
    swap's uint8 view and ``BuildResult.feed_metrics``' phase gauges.
-6. DiskANN path, counters zeroed just before and read just after:
+6. Live phase over step 2's build, counters zeroed just before and read
+   just after: ``LiveIndex.from_build`` (``fused``, ``split_max`` between
+   the two largest shards' sizes after the inserts) with uint8 views,
+   served by an ``AnnServer`` (split, nprobe=2, uint8 one request in two,
+   max_batch 64, max_wait_ms 2) under open-loop Poisson traffic at 1,000
+   QPS while a writer thread inserts 50,000 vectors of the index's
+   distribution in 10 calls (one shard splits), deletes 5% of the ids
+   uniformly and 30% of one shard's residents, searches the tombstoned
+   snapshot (f32 and uint8, 10,000 queries, ground truth over the live
+   ids from K4), consolidates and searches again, calling
+   ``swap_topology`` after each mutation.  Gates: a split; no tombstoned
+   id returned and recall@10 no more than 0.02 below the unchurned split
+   index's; consolidation removes every resident dead id; no failed,
+   rejected or shed request; no response holding an id deleted before
+   the swap that preceded its submission; each swap's device uploads at
+   most one f32 and one uint8 pair a touched shard.  Then a full-size
+   ``save``, a logged tail (insert, delete, consolidate), a crash at
+   ``wal.append.torn`` on the next insert, and ``LiveIndex.load`` on the
+   card, which must equal the crashed index (ids, graphs, entries,
+   centroids, tombstones, ``wal_seq``, search ids).  The phase's parts are
+   timed (K3 by CUDA events), K3's bound computed at the insert and the
+   served shapes, and K1/K2 timed at the routing tile against 16
+   centroids (skinny) and the 17 after the split (tiled).
+7. DiskANN path, counters zeroed just before and read just after:
    ``make_clustered(vamana_n, 128, n_queries=2000, seed=1)`` written to a
    BIGANN ``.fbin`` and memmapped back, ``build_diskann`` (uniform ω=2,
    Vamana R=64, L=128 per shard; every round one K3 launch at Q=256,
@@ -65,7 +88,7 @@
    uint8 exact, f32 99.9% of ids), one Vamana round's prune and reverse
    edges on the card against the CPU on integer points (equal), and K3 at
    the build shape against its plain version (ids and counters on 99.9%).
-7. LM main path, counters zeroed just before and read just after:
+8. LM main path, counters zeroed just before and read just after:
    TinyLlama-1.1B at full width (22 layers, d_model 2048, GQA 32/4) with
    seeded random weights in bf16, ``ServeEngine`` with 8 slots and
    max_len 2048 serving 12 greedy requests (prompts of 512–1024 tokens,
@@ -73,7 +96,7 @@
    wave, K6 once per layer and decode step.  Then one prefill and three
    decode steps under torch.profiler: host wall time against device busy
    time, and the kernels that take it.
-8. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
+9. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
    shape of the LM path (ragged last tiles), at head dims 16, 32 and 128,
    non-causal, S < T and GQA groups 1 and 8 (with the share of outputs
    bit-equal to the plain version), then at q [8,32,1024,64], k/v
@@ -87,7 +110,7 @@
    included.  SDPA is timed as the yardstick.  K6's scratch, kept per
    stream: grown between launches back to back, used by a captured CUDA
    graph on new inputs, and refused when a capture would need more.
-9. The small TinyLlama config in f32, prefill and 4 decode steps on the
+10. The small TinyLlama config in f32, prefill and 4 decode steps on the
    card and on the CPU's plain path: logits to 1e-4, greedy tokens equal.
 
 Prints one ``{"kernels": [...]}`` line, then the card's line, then
@@ -105,6 +128,7 @@ import itertools
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -116,6 +140,7 @@ H100_HBM_BYTES = 3.35e12    # HBM3 bytes per second
 
 
 ANN_KERNELS = ("pairwise_distance", "pairwise_distance_u8", "fused_beam", "knn")
+LIVE_INSERTS, LIVE_CALLS, LIVE_QPS = 50_000, 10, 1000.0  # the live phase
 LM_KERNELS = ("flash_attention", "flash_decode")
 LM_NEW_TOKENS = 64
 
@@ -278,7 +303,7 @@ def main_path(torch, args):
     need(results[("merged", None, "f32")] >= 0.3,
          f"merged f32 recall@10 {results[('merged', None, 'f32')]:.4f} "
          "below 0.3")
-    return ds, res, merged, split, launches
+    return ds, res, merged, split, launches, results
 
 
 def cold_graph_ms(torch, fn, inputs, reps: int = 50) -> float:
@@ -1156,6 +1181,528 @@ def serving_path(torch, ds, res, merged, split):
     return launches
 
 
+_PART = threading.local()
+
+
+@contextlib.contextmanager
+def live_timers(torch):
+    """Wall time and calls of the live index's parts while the block runs
+    (each part ends in a host read of its device results, so its wall
+    time covers its device work), and K3 by the part that launched it:
+    CUDA events around the C launch of every launch made inside an insert
+    round or a split (the writer's; the server's launches carry no part),
+    and the first launch's inputs and outputs of each part and of the
+    server, for :func:`k3_bound`."""
+    from repro_torch.kernels import beam
+    from repro_torch.live.index import LiveIndex
+
+    walls: dict = collections.defaultdict(lambda: [0, 0.0])
+    events: dict = collections.defaultdict(list)
+    first: dict = {}
+    tags = {"_insert_rounds": "insert", "_split_shard": "split"}
+    names = ("insert_batch", "_insert_rounds", "_split_shard", "_touch_shard",
+             "_quant_list", "consolidate", "_reprune", "snapshot")
+    originals = {n: LiveIndex.__dict__[n] for n in names}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            prev = getattr(_PART, "tag", None)
+            _PART.tag = tags.get(name, prev)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc = walls[name]
+                acc[0] += 1
+                acc[1] += time.perf_counter() - t0
+                _PART.tag = prev
+        return timed
+
+    launch = beam.fused_beam_cuda
+    lib = beam._lib()
+    c_launch = lib.repro_fused_beam
+
+    def tallied(x, graph, entries, queries, k, **kw):
+        out = launch(x, graph, entries, queries, k, **kw)
+        tag = getattr(_PART, "tag", None) or "serve"
+        if tag not in first and queries.shape[0] >= 8:
+            first[tag] = ((x, graph, entries, queries, k), kw,
+                          k3_bound(x, graph, queries, out,
+                                   kw.get("x_exact") if kw.get("rerank_k")
+                                   else None))
+        return out
+
+    def c_timed(*a):
+        tag = getattr(_PART, "tag", None)
+        if tag is None:
+            return c_launch(*a)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = c_launch(*a)
+        end.record()
+        events[tag].append((start, end))
+        return rc
+
+    for n in names:
+        setattr(LiveIndex, n, wrap(n, originals[n]))
+    beam.fused_beam_cuda = tallied
+    lib.repro_fused_beam = c_timed
+    try:
+        yield walls, events, first
+    finally:
+        for n in names:
+            setattr(LiveIndex, n, originals[n])
+        beam.fused_beam_cuda = launch
+        lib.repro_fused_beam = c_launch
+
+
+def shares_rows(a, b) -> bool:
+    """Whether any row of ``a`` equals a row of ``b`` (rows keyed by a
+    random projection, candidates compared exactly)."""
+    import numpy as np
+
+    r = np.random.default_rng(0).normal(size=a.shape[1])
+    ka, kb = a.astype(np.float64) @ r, b.astype(np.float64) @ r
+    hit = np.flatnonzero(np.isin(ka, kb))
+    pos = {k: i for i, k in enumerate(kb.tolist())}
+    return any(np.array_equal(a[i], b[pos[ka[i]]]) for i in hit)
+
+
+def touched_shards(old, new) -> int:
+    """Shards of ``new`` whose f32 store is not ``old``'s object (mutated
+    or new shards), the non-empty ones."""
+    olds, news = old.shard_store(), new.shard_store()
+    return sum(1 for s, st in enumerate(news) if len(new.shard_ids[s])
+               and (s >= len(olds) or st is not olds[s]))
+
+
+async def open_loop(srv, queries, rate: float, seed: int, done, overrides):
+    """Open-loop Poisson arrivals at ``rate`` a second until ``done`` is
+    set, each backdated to its scheduled arrival and stamped with the
+    served generation at its submission.  Returns ``(j, generation,
+    options, QueryResult or exception)`` and the count of rejected
+    submissions."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.serving import ServerOverloadedError
+
+    rng = np.random.default_rng(seed)
+    futs, rejected = [], 0
+    t_next = time.monotonic()
+    j = 0
+    while not done.is_set():
+        t_next += rng.exponential(1.0 / rate)
+        delay = t_next - time.monotonic()
+        if delay > 0:
+            await asyncio.sleep(delay)
+        kw = overrides(j)
+        gen = srv.topology_generation
+        try:
+            futs.append((j, gen, kw, srv.submit_nowait(
+                queries[j % len(queries)], t_submit=t_next, **kw)))
+        except ServerOverloadedError:
+            rejected += 1
+        j += 1
+    outs = await asyncio.gather(*(f for *_, f in futs),
+                                return_exceptions=True)
+    return [(j, g, kw, o) for (j, g, kw, _), o in zip(futs, outs)], rejected
+
+
+def live_recall(torch, snap, queries, gt, tomb, recalls, what):
+    """Search a live snapshot at split nprobe=2, k=10, width=64 in f32 and
+    uint8: no tombstoned id returned, and recall@10 against ``gt`` (exact
+    over the live ids) no more than 0.02 below the unchurned split
+    index's (a gain is no fault; the delta is logged)."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import recall_at
+    from repro_torch.search import search
+
+    for dtype in ("f32", "uint8"):
+        t0 = time.perf_counter()
+        ids, stats = search(snap, queries, 10, width=64, nprobe=2,
+                            dtype=dtype)
+        wall = time.perf_counter() - t0
+        found = ids[ids >= 0]
+        dead = int(tomb[found].sum())
+        rec = recall_at(ids, gt, 10)
+        base = recalls[("split", 2, dtype)]
+        log(f"live search {what} split nprobe=2 {dtype}: recall@10={rec:.4f} "
+            f"(unchurned {base:.4f}, delta {rec - base:+.4f}) tombstoned "
+            f"ids returned={dead} qps={len(queries) / wall:.1f} "
+            f"dist/q={stats.per_query()['distance_computations']:.1f}")
+        need(dead == 0, f"live search {what} {dtype}: {dead} tombstoned ids "
+             "returned")
+        need(rec >= base - 0.02, f"live search {what} {dtype}: recall@10 "
+             f"{rec:.4f} is more than 0.02 below the unchurned {base:.4f}")
+
+
+def time_routing_tiles(torch, ds, split, snap):
+    """K1 (f32 L2) and K2 (uint8 L2) at the routing tile of the 10,000
+    queries against the split's 16 centroids (the skinny kernel) and the
+    live index's 17 after its split (the tiled kernel), timed as K1 is on
+    the main path: a CUDA graph over rotated copies of the queries, and a
+    call with the host included; each against its plain version."""
+    import numpy as np
+
+    from repro_torch.kernels import distance
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q = torch.from_numpy(np.ascontiguousarray(ds.queries)).cuda()
+    m, d = q.shape
+    for topo in (split, snap):
+        cx = torch.from_numpy(np.ascontiguousarray(topo.centroids,
+                                                   np.float32)).cuda()
+        codes, spec, _ = topo.centroid_quant()
+        cq = torch.from_numpy(spec.quantize(ds.queries)).cuda()
+        cc = torch.from_numpy(np.ascontiguousarray(codes)).cuda()
+        n = cx.shape[0]
+        for name, a, x, fn, plain, mk, elt, peak in (
+                ("K1 f32", q, cx,
+                 lambda a_, x_: distance.pairwise_distance_cuda(a_, x_, "l2"),
+                 lambda a_, x_: distance.pairwise_distance_plain(a_, x_,
+                                                                 "l2"),
+                 lambda: torch.randn(m, d, device="cuda", generator=g), 4,
+                 H100_FP32_FLOPS),
+                ("K2 uint8", cq, cc,
+                 lambda a_, x_: distance.pairwise_distance_u8_cuda(
+                     a_, x_, spec.scale, spec.zero_point, "l2"),
+                 lambda a_, x_: distance.pairwise_distance_u8_plain(
+                     a_, x_, spec.scale, spec.zero_point, "l2"),
+                 lambda: torch.randint(0, 256, (m, d), device="cuda",
+                                       generator=g, dtype=torch.uint8), 1,
+                 H100_INT8_OPS)):
+            plan = distance.plan_for(a, x)
+            got, want = fn(a, x), plain(a, x)
+            err = float((got - want).abs().max())
+            need(err <= 1e-5 * float(want.abs().max()) + 1e-3,
+                 f"{name} routing tile at N={n} disagrees")
+            if elt == 1:
+                need(torch.equal(got, want), f"{name} L2 at N={n} is not "
+                     "bit-exact")
+            qs, cold = copies_for(torch, mk, m * d * elt)
+            ms = cold_graph_ms(torch, lambda a_: fn(a_, x), [(c,) for c in qs])
+            del qs
+            call_ms = events_ms(torch, lambda: fn(a, x), reps=50)
+            b, by = bound_ms((m + n) * d * elt + m * n * 4, 2 * m * n * d,
+                             peak)
+            log(f"{name} routing tile [{m},{d}]x[{n},{d}] kernel={plan.kernel} "
+                f"max_abs_err={err:.3e} graph_ms={ms:.5f} "
+                f"({'cold' if cold else 'warm'} L2) per_call_ms={call_ms:.5f} "
+                f"(host included) bound_ms={b:.5f} ({by}) "
+                f"share_of_bound={b / ms:.3f}")
+        need(distance.plan_for(q, cx).kernel
+             == ("skinny" if n <= 16 else "tiled"),
+             f"the routing tile at N={n} took another kernel")
+
+
+def live_path(torch, ds, res, split, recalls):
+    """The live index on the card over step 2's 1M build (the docstring's
+    step 6), counters zeroed just before it and read just after: a
+    ``LiveIndex`` served by an ``AnnServer`` while one writer thread
+    inserts 50,000 vectors in 10 calls (one shard splits), deletes 5% of
+    the ids uniformly and then 30% of one shard's residents, searches the
+    tombstoned snapshot, consolidates and searches again, swapping each
+    generation in; then a full-size save, a logged tail, a crash inside
+    the next WAL append and a recovery that must equal the crashed
+    process's index.  Returns the launches of K1–K4 in the phase."""
+    import asyncio
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs.base import IndexConfig
+    from repro_torch.data.synthetic import exact_ground_truth, make_clustered
+    from repro_torch.durability import CrashInjector, SimulatedCrash
+    from repro_torch.kernels import reset_counts
+    from repro_torch.live import LiveConfig, LiveIndex
+    from repro_torch.search import search
+    from repro_torch.serving import AnnServer, ServerStats, ServingConfig
+
+    t0 = time.perf_counter()
+    n_insert, calls, rate = LIVE_INSERTS, LIVE_CALLS, LIVE_QPS
+    per = n_insert // calls
+    new = make_clustered(n_insert, 128, seed=0).data
+    tail = make_clustered(per + per // 5, 128, seed=0).data
+    shared = (shares_rows(new, ds.data), shares_rows(tail, ds.data),
+              shares_rows(tail, new))
+    log(f"live data: {n_insert} inserts in {calls} calls and a "
+        f"{len(tail)}-row tail from "
+        f"make_clustered(seed=0) (the index's centres and weights, new "
+        f"noise), rows shared with the index / with each other {shared}, "
+        f"{time.perf_counter() - t0:.3f} s")
+    need(not any(shared), "the live phase's vectors repeat rows of the index")
+    cfg = IndexConfig()
+    # split_max: between the two largest shards' sizes after the inserts,
+    # routed to the shards' means as the live index routes after a touch
+    sizes = np.array([len(s.ids) for s in res.shards])
+    means = np.stack([ds.data[s.ids].mean(axis=0) for s in res.shards])
+    route = np.argmin((new * new).sum(1)[:, None] - 2.0 * (new @ means.T)
+                      + (means * means).sum(1)[None, :], axis=1)
+    final = np.sort(sizes + np.bincount(route, minlength=len(sizes)))[::-1]
+    split_max = int((final[0] + final[1]) // 2)
+    log(f"live split_max={split_max} (largest shard {sizes.max()} now, "
+        f"predicted largest two after the inserts {final[:2].tolist()})")
+
+    reset_counts()
+    q = np.ascontiguousarray(ds.queries)
+    rng = np.random.default_rng(3)
+    live = LiveConfig(backend="fused", split_max=split_max)
+    with live_timers(torch) as (walls, k3_events, k3_first):
+        t0 = time.perf_counter()
+        li = LiveIndex.from_build(res, ds.data, cfg, live)
+        li.prepare("uint8")
+        log(f"live index from the build and its uint8 views "
+            f"{time.perf_counter() - t0:.3f} s ({li.n_shards} shards)")
+        snap0 = li.snapshot()
+        tombs = {0: li._tombstones}  # generation -> its deleted ids
+        windows: list = []
+        seen = {"snap": snap0}
+        report: dict = {}
+
+        def swap(srv, what):
+            snap = li.snapshot()
+            touched = touched_shards(seen["snap"], snap)
+            start = registry_sum("search_device_uploads_total")
+            t_sw = time.perf_counter()
+            gen = srv.swap_topology(snap, reason="churn")
+            windows.append(dict(what=what, gen=gen, touched=touched,
+                                start=start, swap_s=time.perf_counter() - t_sw))
+            tombs[gen] = li._tombstones
+            seen["snap"] = snap
+            return snap
+
+        def writer(srv):
+            t_w = time.perf_counter()
+            for c in range(calls):
+                li.insert_batch(new[c * per:(c + 1) * per])
+                swap(srv, f"insert {c}")
+            report["inserts_s"] = time.perf_counter() - t_w
+            need(li.n_shards == len(res.shards) + 1,
+                 f"the inserts left {li.n_shards} shards, not one split")
+            t_d = time.perf_counter()
+            li.delete_batch(rng.choice(li.n_vectors, li.n_vectors // 20,
+                                       replace=False))
+            swap(srv, "delete 5% uniform")
+            big = int(np.argmax([len(i) for i in li._ids]))
+            ids = li._ids[big]
+            li.delete_batch(rng.choice(ids, int(0.3 * len(ids)),
+                                       replace=False))
+            snap = swap(srv, f"delete 30% of shard {big}")
+            report["deletes_s"] = time.perf_counter() - t_d
+            t_g = time.perf_counter()
+            alive = np.flatnonzero(~li._tombstones)
+            gt = alive[exact_ground_truth(li._data[alive], q, 10)]
+            report["gt_s"] = time.perf_counter() - t_g
+            log(f"live ground truth over {len(alive)} live ids (K4) "
+                f"{report['gt_s']:.3f} s; resident dead {li.resident_dead}")
+            live_recall(torch, snap, q, gt, li._tombstones, recalls,
+                        "tombstoned")
+            resident = li.resident_dead
+            t_c = time.perf_counter()
+            st = li.consolidate()
+            report["consolidate_s"] = time.perf_counter() - t_c
+            report["consolidate"] = st
+            snap = swap(srv, "consolidate")
+            log(f"live consolidate {json.dumps(st)} resident dead before "
+                f"{resident}, after {li.resident_dead}; wall "
+                f"{report['consolidate_s']:.3f} s")
+            need(snap.tombstones is None and li.resident_dead == 0
+                 and st["removed"] == resident,
+                 "consolidation left resident dead ids")
+            live_recall(torch, snap, q, gt, li._tombstones, recalls,
+                        "consolidated")
+
+        def run_writer(srv, done, errors):
+            try:
+                writer(srv)
+            except BaseException as exc:  # re-raised in the main thread
+                errors.append(exc)
+            finally:
+                done.set()
+
+        def overrides(j):
+            return {"dtype": "uint8"} if j % 2 else {}
+
+        scfg = ServingConfig(backend="fused", k=10, width=64, nprobe=2,
+                             max_batch=64, max_wait_ms=2.0,
+                             pretrace_dtypes=("uint8",))
+
+        async def serve():
+            srv = AnnServer(snap0, scfg)
+            async with srv:
+                await srv.submit(q[0])  # served after the warm-up
+                warm_stats, srv.stats = srv.stats, ServerStats()
+                done, errors = threading.Event(), []
+                th = threading.Thread(target=run_writer,
+                                      args=(srv, done, errors))
+                t_s = time.perf_counter()
+                th.start()
+                out, rejected = await open_loop(srv, q, rate, 5, done,
+                                                overrides)
+                th.join()
+                end = registry_sum("search_device_uploads_total")
+                wall = time.perf_counter() - t_s
+            return srv, warm_stats, out, rejected, errors, end, wall
+
+        srv, warm_stats, out, rejected, errors, end, wall = asyncio.run(
+            serve())
+        if errors:
+            raise errors[0]
+        for w, nxt in zip(windows, windows[1:] + [dict(start=end)]):
+            w["uploads"] = nxt["start"] - w["start"]
+        st = srv.stats
+        snap = st.snapshot()
+        stale = sum(
+            1 for _, gen, _, res_ in out if not isinstance(res_, Exception)
+            and bool(((res_.ids >= 0) & (res_.ids < len(tombs[gen]))
+                      & tombs[gen][np.clip(res_.ids, 0,
+                                           len(tombs[gen]) - 1)]).any()))
+        errs = [o for *_, o in out if isinstance(o, Exception)]
+        failed = len(errs)
+        row = {
+            "requests": len(out), "offered_qps": rate,
+            "wall_s": wall, "served_qps": snap["qps"],
+            "latency_ms": snap["latency_ms"],
+            "queue_wait_ms": snap["queue_wait_ms"],
+            "engine_service_ms": snap["engine_service_ms"],
+            "mean_occupancy": snap["batch_occupancy"]["mean"],
+            "swaps": len(windows), "rejected_submissions": rejected,
+            "failed_futures": failed,
+            "responses_with_ids_deleted_before_their_swap": stale,
+        }
+        log("live serving " + json.dumps(row))
+        for w in windows:
+            log(f"live swap {w['gen']} after {w['what']}: shards touched "
+                f"{w['touched']}, device uploads {w['uploads']:.0f} (bound "
+                f"{2 * w['touched']}), swap_topology {w['swap_s'] * 1e3:.1f} ms")
+        for s_ in (warm_stats, st):
+            need(s_.n_failed == 0 and s_.n_rejected == 0 and s_.n_shed == 0
+                 and rejected == 0 and failed == 0,
+                 f"live serving: {s_.n_failed} failed, {s_.n_rejected} "
+                 f"rejected, {s_.n_shed} shed; {rejected} submissions "
+                 f"rejected, {failed} futures failed {errs[:1]!r}")
+        need(st.n_completed == len(out), "live serving: not every request "
+             "completed")
+        need(stale == 0, f"live serving: {stale} responses hold an id deleted "
+             "before the swap that preceded their submission")
+        for w in windows:
+            need(w["uploads"] <= 2 * w["touched"], f"live serving: swap "
+                 f"{w['gen']} ({w['what']}) cost {w['uploads']:.0f} uploads "
+                 f"for {w['touched']} touched shards")
+
+        # 7. durability at the full size
+        root = ROOT / "build" / "live_snapshot"
+        shutil.rmtree(root, ignore_errors=True)
+        inj = CrashInjector(crash_at={"wal.append.torn": 4})
+        t0 = time.perf_counter()
+        manifest = li.save(root, injector=inj)
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(p.stat().st_size for p in root.iterdir())
+        k3_before = len(k3_events["insert"])
+        rounds_before = walls["_insert_rounds"][1]
+        t0 = time.perf_counter()
+        li.insert_batch(tail[:per])
+        tail_insert_s = time.perf_counter() - t0
+        tail_k3 = [a.elapsed_time(b) for a, b in
+                   k3_events["insert"][k3_before:]]
+        tail_rounds_s = walls["_insert_rounds"][1] - rounds_before
+        li.delete_batch(rng.choice(li.n_vectors, per, replace=False))
+        tail_cons = li.consolidate()
+        crashed = False
+        try:
+            li.insert_batch(tail[per:])
+        except SimulatedCrash:
+            crashed = True
+        need(crashed, "the injector did not crash the WAL append")
+        t0 = time.perf_counter()
+        back = LiveIndex.load(root, cfg, live)
+        load_s = time.perf_counter() - t0
+        same = {
+            "_ids": all(np.array_equal(a, b)
+                        for a, b in zip(li._ids, back._ids))
+            and len(li._ids) == len(back._ids),
+            "_graphs": all(np.array_equal(a, b)
+                           for a, b in zip(li._graphs, back._graphs))
+            and len(li._graphs) == len(back._graphs),
+        }
+        for name in ("_entries", "_centroids", "_tombstones", "_data"):
+            same[name] = np.array_equal(getattr(li, name),
+                                        getattr(back, name))
+        same["wal_seq"] = li.wal_seq == back.wal_seq
+        for dtype in ("f32", "uint8"):
+            a, _ = search(li.snapshot(), q, 10, width=64, nprobe=2,
+                          dtype=dtype)
+            b, _ = search(back.snapshot(), q, 10, width=64, nprobe=2,
+                          dtype=dtype)
+            same[f"search ids {dtype}"] = np.array_equal(a, b)
+        log(f"live durability: save {save_s:.3f} s ({n_bytes} bytes, "
+            f"{n_bytes / save_s / 1e6:.1f} MB/s, {li.n_vectors} vectors, "
+            f"{li.n_shards} shards); tail insert of {per} {tail_insert_s:.3f}"
+            f" s (rounds {tail_rounds_s:.3f} s, {len(tail_k3)} K3 launches "
+            f"{sum(tail_k3):.3f} ms, uncontended), delete, consolidate "
+            f"{json.dumps(tail_cons)}; crash at wal.append.torn on the next "
+            f"insert; load + replay of "
+            f"{back.wal_seq - manifest['wal_seq']} records {load_s:.3f} s; "
+            f"recovered equal to the crashed index "
+            f"{json.dumps(same)}")
+        need(all(same.values()), "the recovered index differs from the "
+             "crashed process's")
+        li.close()
+        back.close()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = ann_counts()
+    log(f"live-phase launches {json.dumps(launches)}")
+    for name in ANN_KERNELS:
+        need(launches[name] > 0, f"kernel {name} was not launched in the "
+             "live phase")
+    # 8. where the time went
+    k3_ms = {tag: [a.elapsed_time(b) for a, b in ev]
+             for tag, ev in k3_events.items()}
+    parts = {name: {"calls": c, "s": round(t, 6)}
+             for name, (c, t) in sorted(walls.items())}
+    ins = walls["insert_batch"][1]
+    log(f"live parts {json.dumps(parts)}")
+    log(f"live inserts: {calls} calls of {per} in {report['inserts_s']:.3f} s "
+        f"wall (the whole phase's {walls['insert_batch'][0]} calls below, "
+        f"the tail's and the replay's included); insert rounds {len(k3_ms.get('insert', []))} (K3 device "
+        f"{sum(k3_ms.get('insert', [])):.3f} ms, CUDA events, the server's "
+        f"kernels may interleave), rounds' wall (upload, K3, prune, reverse "
+        f"edges, read back) {walls['_insert_rounds'][1]:.3f} s, less K3's "
+        f"device time "
+        f"{walls['_insert_rounds'][1] - sum(k3_ms.get('insert', [])) / 1e3:.3f}"
+        f" s; split "
+        f"{walls['_split_shard'][1]:.3f} s ({len(k3_ms.get('split', []))} "
+        f"K3 launches, {sum(k3_ms.get('split', [])):.3f} ms); host "
+        f"(routing, concatenations, centroids and entries) "
+        f"{ins - walls['_insert_rounds'][1] - walls['_split_shard'][1]:.3f} "
+        f"s of which _touch_shard {walls['_touch_shard'][1]:.3f} s; "
+        f"quantized views {walls['_quant_list'][1]:.3f} s; swaps "
+        f"{sum(w['swap_s'] for w in windows):.3f} s for "
+        f"{sum(w['uploads'] for w in windows):.0f} uploads; two delete "
+        f"waves with their swaps {report['deletes_s']:.3f} s; consolidation "
+        f"{report['consolidate_s']:.3f} s (re-prune {walls['_reprune'][1]:.3f}"
+        f" s over {report['consolidate']['rows_repruned']} rows); save "
+        f"{save_s:.3f} s, load {load_s:.3f} s")
+    for tag in ("insert", "serve"):
+        if tag in k3_first:
+            args, kw, (b, by) = k3_first[tag]
+            from repro_torch.kernels import beam
+
+            ms = events_ms(torch, lambda: beam.fused_beam_cuda(*args, **kw),
+                           reps=5)
+            x, _, e, qq, k = args
+            log(f"K3 {tag} shape Q={qq.shape[0]} N={x.shape[0]} "
+                f"{str(x.dtype)[6:]} k={k} width={kw.get('width')} "
+                f"n_iters={kw.get('n_iters')} E={e.shape[0]} ms={ms:.4f} "
+                f"bound_ms={b:.4f} ({by}) share_of_bound={b / ms:.3f}")
+    time_routing_tiles(torch, ds, split, seen["snap"])
+    return launches
+
+
 @contextlib.contextmanager
 def k3_timer(torch, pool: int | None = None):
     """Time every K3 launch — with ``pool``, only those at the Vamana build
@@ -1852,7 +2399,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
-    ap.add_argument("--vamana-n", type=int, default=100_000)
+    ap.add_argument("--vamana-n", type=int, default=50_000)
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -1869,7 +2416,8 @@ def main(argv=None) -> int:
     if args.n != 1_000_000:
         log(f"CUT: n={args.n} instead of 1,000,000 (SIFT1M/BIGANN-1M shape)")
     log(f"CUT: DiskANN phase n={args.vamana_n} instead of 1,000,000 (its "
-        "host merge and the run's time limit)")
+        "host merge and the run's time limit; 50,000 by default since the "
+        "live phase)")
     t_start = time.perf_counter()
     card = environment(torch)
     from repro_torch.kernels import LAUNCHES
@@ -1894,7 +2442,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     with k1_tally() as k1_shapes, k3_tally() as (k3_shapes, k3_first):
-        ds, res, merged, split, launches = main_path(torch, args)
+        ds, res, merged, split, launches, recalls = main_path(torch, args)
     log(f"main path {time.perf_counter() - t0:.3f} s")
     for name, count in launches.items():
         rows[name]["launches"] = count
@@ -1912,6 +2460,10 @@ def main(argv=None) -> int:
     for name, count in serving_path(torch, ds, res, merged, split).items():
         rows[name]["launches"] += count
     log(f"serving phase {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    for name, count in live_path(torch, ds, res, split, recalls).items():
+        rows[name]["launches"] += count
+    log(f"live phase {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     dk_ds, dk_res, dk_topo, dk_first, dk_launches = diskann_path(torch, args)
     for name, count in dk_launches.items():

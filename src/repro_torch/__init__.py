@@ -10,9 +10,12 @@ merge, and the beam search over merged or centroid-routed split
 topologies at f32, bf16 and uint8 with the exact-f32 re-rank on the
 ``fused``, ``torch`` and ``numpy`` backends; the DiskANN baseline
 (uniform replication, batched Vamana shard builds, merge) from BIGANN
-``*bin`` files; and LM serving for the dense family (TinyLlama-1.1B):
-prefill and slot-batched decode through the flash-attention and
-flash-decode kernels.
+``*bin`` files; the micro-batching ANN server; the live index (inserts,
+tombstone deletes, consolidation and shard splits over copy-on-write
+snapshot generations) with its write-ahead log and atomic snapshots in
+the reference's on-disk formats; and LM serving for the dense family
+(TinyLlama-1.1B): prefill and slot-batched decode through the
+flash-attention and flash-decode kernels.
 
 Parity contract.  On the same inputs, ``repro_torch.search.search`` returns
 the same ids and the same ``SearchStats`` (``dataclasses.asdict``) as
@@ -21,8 +24,8 @@ reference suite's tolerance.  The uint8 L2 stage is integer-exact.  No f32
 product runs in TF32.
 
 Device rule.  The public entry points (``build_scalegann``,
-``build_diskann``, ``search``, ``make_clustered``, ``Model.init``,
-``ServeEngine``) run on the card when
+``build_diskann``, ``search``, ``make_clustered``, ``AnnServer``,
+``LiveIndex``, ``Model.init``, ``ServeEngine``) run on the card when
 ``device`` is not given, and raise when CUDA is missing; ``device="cpu"``
 runs the plain PyTorch versions of the kernels instead.  Each kernel
 wrapper takes its plain version only because the tensor it was given lies

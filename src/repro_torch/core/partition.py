@@ -232,6 +232,74 @@ def assign_block(
     return BlockAssignment(assign, odist, replicas, rd)
 
 
+def assign_block_sequential(
+    block: np.ndarray, state: PartitionState, cfg: IndexConfig, tau: float,
+    device: torch.device,
+) -> BlockAssignment:
+    """Literal Algorithm 1: ordered scan over the block (reference)."""
+    dists = _distances_to_centroids(block, state.centroids, device)
+    assign = np.full(len(block), -1, np.int64)
+    odist = np.zeros(len(block), np.float32)
+    reps, rds = [], []
+    # Phase 1: originals in block order (nearest available cluster).
+    for i in range(len(block)):
+        order = np.argsort(dists[i], kind="stable")
+        for c in order:
+            if state.sizes[c] < state.capacity:
+                assign[i] = c
+                odist[i] = dists[i, c]
+                state.sizes[c] += 1
+                state.original_counts[c] += 1
+                state.radii[c] = max(state.radii[c], float(dists[i, c]))
+                break
+        else:
+            raise RuntimeError("out of capacity")
+    state.update_theta(cfg.theta)
+    state.n_seen += len(block)
+    # Phase 2: replicas in block order (Algorithm 1 lines 5–11).
+    quota = state.replica_quota()
+    for i in range(len(block)):
+        assigned = 1
+        d = odist[i]
+        for c in np.argsort(dists[i], kind="stable"):
+            if assigned > cfg.omega - 1:
+                break
+            if c == assign[i]:
+                continue
+            if state.sizes[c] >= state.capacity or quota[c] <= 0:
+                continue  # checkSizeLimit(c', θ)
+            dprime = dists[i, c]
+            if (dprime < cfg.epsilon * d
+                    and dprime < cfg.epsilon * tau * state.radii[c]):
+                reps.append((i, c))
+                rds.append(dprime)
+                state.sizes[c] += 1
+                state.replica_sizes[c] += 1
+                quota[c] -= 1
+                assigned += 1
+    replicas = np.asarray(reps, np.int64).reshape(-1, 2)
+    return BlockAssignment(assign, odist, replicas, np.asarray(rds, np.float32))
+
+
+def split_shard_rows(
+    rows: np.ndarray, *, iters: int = 12, seed: int = 0, device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """2-means re-centering for a shard that outgrew its centroid (the
+    live mutation layer, ``repro_torch.live``): train two centroids on the
+    shard's rows with the partitioner's kmeans machinery and assign each
+    row to its nearest (both tiles K1 on the card unless ``device`` is
+    ``"cpu"``).  Returns ``(assign [n] in {0, 1}, centroids [2, D] f32)``.
+    No capacity/replica logic — a live split is a local re-partition of
+    one shard's residents, not a re-run of Algorithm 1."""
+    dev = resolve_device(device)
+    rows = np.asarray(rows, np.float32)
+    cent = _kmeans.train_centroids(
+        rows, 2, iters=iters, sample=len(rows), seed=seed, device=dev
+    )
+    d = _distances_to_centroids(rows, cent, dev)
+    return np.argmin(d, axis=1).astype(np.int64), np.asarray(cent, np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Full-dataset pass
 # ---------------------------------------------------------------------------
@@ -281,6 +349,7 @@ def partition(
     cfg: IndexConfig,
     *,
     centroids: np.ndarray | None = None,
+    sequential: bool = False,
     selective: bool = True,
     device=None,
 ) -> PartitionResult:
@@ -288,8 +357,10 @@ def partition(
 
     ``selective=False`` reproduces DiskANN's uniform policy (every vector
     replicated to its next-nearest clusters up to ω, no ε/τ/θ pruning) — the
-    'Original' column of paper Table IV.  Distance tiles run on ``device``
-    (the card unless ``"cpu"`` is given).
+    'Original' column of paper Table IV.  ``sequential=True`` runs the
+    literal ordered scan of Algorithm 1 (:func:`assign_block_sequential`)
+    instead of the order-independent block assignment.  Distance tiles run
+    on ``device`` (the card unless ``"cpu"`` is given).
     """
     dev = resolve_device(device)
     n = len(data)
@@ -307,6 +378,7 @@ def partition(
     if not selective:
         state.radii[:] = np.inf
 
+    assign_fn = assign_block_sequential if sequential else assign_block
     n_blocks = max(1, -(-n // cfg.block_size))
     per_cluster: list[list[np.ndarray]] = [[] for _ in range(cfg.n_clusters)]
     per_cluster_rep: list[list[np.ndarray]] = [[] for _ in range(cfg.n_clusters)]
@@ -315,8 +387,8 @@ def partition(
     for b_idx, block in enumerate(iter_blocks(data, cfg.block_size)):
         base = b_idx * cfg.block_size
         tau = eff_cfg.tau(b_idx, n_blocks)
-        ba = assign_block(np.asarray(block, np.float32), state, eff_cfg, tau,
-                          dev)
+        ba = assign_fn(np.asarray(block, np.float32), state, eff_cfg, tau,
+                       dev)
         gids = base + np.arange(len(block))
         for c in np.unique(ba.original_cluster):
             rows = gids[ba.original_cluster == c]

@@ -16,7 +16,8 @@ What lives here rather than in the kernel module:
     ``search_device_uploads_total{stage}`` of the current metrics
     registry.  :func:`warm` uploads a topology's whole working set at
     given dtypes and raises the cache's cap to hold it (a split topology
-    of 16 shards served at two stages needs 32 entries).
+    of 16 shards served at two stages needs 32 entries), beside the
+    working set of the generation an epoch swap replaces.
   * **The beam_fn protocol** (:func:`fused_beam_search`) for the shared
     ``run_merged`` / ``run_split`` search loops and :func:`repro_torch.search
     .beam_pool`: numpy in and out, ``n_real`` stats slicing, ``quant``
@@ -118,12 +119,11 @@ def _prepared(data, graph, quant, device: torch.device) -> _Prepared:
     return entry
 
 
-def warm(topo, dtypes, device: torch.device) -> int:
-    """Upload every device copy that searches of ``topo`` at ``dtypes``
-    read — the store and graph of each stage, every shard of a split
-    topology, the exact store a fused merged re-rank reads — and raise the
-    cache's cap to hold them all at once (it never falls).  Returns the
-    size of that working set."""
+def _working_set(topo, dtypes) -> list:
+    """``(storage, graph, quant)`` of every device copy that searches of
+    ``topo`` at ``dtypes`` read: the store and graph of each stage, every
+    shard of a split topology, the exact store a fused merged re-rank
+    reads."""
     pairs = []
     for dtype in dtypes:
         if isinstance(topo, MergedTopology):
@@ -145,10 +145,34 @@ def warm(topo, dtypes, device: torch.device) -> int:
                 store, spec = views[s]
                 pairs.append((store, graph,
                               spec if spec is not None else dtype))
-    n = len({(id(x), id(g), _stage(q)) for x, g, q in pairs})
+    return pairs
+
+
+def _keys(pairs) -> set:
+    return {(id(x), id(g), _stage(q)) for x, g, q in pairs}
+
+
+def warm(topo, dtypes, device: torch.device, *, keep=()) -> int:
+    """Upload every device copy that searches of ``topo`` at ``dtypes``
+    read (:func:`_working_set`) and raise the cache's cap to hold them
+    all at once (it never falls).  ``keep`` lists topologies still being
+    read at the same dtypes (those an epoch swap replaces): the cap then
+    holds every working set, and ``keep``'s copies move to the recent end
+    of the LRU first, so uploading the new set evicts only copies that
+    none of them reads.  Returns the size of ``topo``'s working set."""
+    pairs = _working_set(topo, dtypes)
+    keys = _keys(pairs)
+    n = len(keys)
+    old = set()
+    for t in keep:
+        old |= _keys(_working_set(t, dtypes))
     global _CACHE_CAP
     with _PREP_LOCK:
-        _CACHE_CAP = max(_CACHE_CAP, n)
+        for key in old:
+            key += (str(device),)
+            if key in _PREP_CACHE:
+                _PREP_CACHE.move_to_end(key)
+        _CACHE_CAP = max(_CACHE_CAP, len(keys | old))
     for x, g, q in pairs:
         _prepared(x, g, q, device)
     return n

@@ -204,6 +204,7 @@ class AnnServer:
         self._worker_task: asyncio.Task | None = None
         self._inflight: list[PendingRequest] = []  # batch popped, unresolved
         self._dim = int(np.asarray(self.topology.data).shape[1])
+        self._executing = None  # the topology the running batch reads
         self.topology_generation = 0
         self.stats.registry.gauge(*_GENERATION_METRIC).set(0)
 
@@ -218,12 +219,16 @@ class AnnServer:
         rejected or replayed across a swap.
 
         The ``fused`` backend's device copies are keyed on the host arrays'
-        identities, so a new topology over the same arrays reuses the f32
-        copies of a merged topology.  Derived views are per topology
-        object — the quantized views, and a split topology's per-shard
-        f32 slices — so the first batch that reads one of them after a
-        swap uploads it inside its engine time.  ``reason`` labels the
-        swap in metrics and the trace.  Returns the new generation number.
+        identities, so a new topology over the same arrays (a merged
+        topology's f32 store, a live index snapshot's untouched shards)
+        reuses its copies.  With ``pretrace`` on, the swap warms the new
+        topology at the warmed dtypes before it stores it, in the caller's
+        thread: what is new (a mutated shard's arrays, a topology's own
+        quantized views) uploads here and not inside a batch's engine
+        time, and the cache keeps room for the generations still read
+        (the served one, and the executing batch's).
+        ``reason`` labels the swap in metrics and the trace.  Returns the
+        new generation number.
         """
         topo = as_topology(index_or_shards, data,
                            metric=self.config.metric or "l2")
@@ -237,6 +242,14 @@ class AnnServer:
                 f"swapped topology metric {topo.metric!r} != served "
                 f"{self.topology.metric!r}"
             )
+        warm = getattr(get_backend(self.config.backend), "warm", None)
+        if self.config.pretrace and warm is not None:
+            # the generations still read: the served one, and the one the
+            # executing batch read when it started (one batch at a time)
+            keep = {id(t): t for t in (self.topology, self._executing)
+                    if t is not None}
+            warm(topo, self._warm_dtypes(), self.device,
+                 keep=tuple(keep.values()))
         self.topology = topo  # the swap: one atomic attribute store
         self.topology_generation += 1
         self.stats.registry.gauge(*_GENERATION_METRIC).set(
@@ -446,6 +459,11 @@ class AnnServer:
         tr.async_complete("serve.resolve", aid, t_eng1, t_done,
                           cat="serving", track="requests")
 
+    def _warm_dtypes(self) -> tuple:
+        """The distance stages the warm-up covers, default first."""
+        cfg = self.config
+        return tuple(dict.fromkeys((cfg.dtype, *cfg.pretrace_dtypes)))
+
     def _pretrace(self) -> None:
         """Warm every batch shape the worker can produce (index vectors
         stand in for queries) at the config-default ``(nprobe, dtype)``,
@@ -464,13 +482,13 @@ class AnnServer:
         while b < cfg.max_batch:
             sizes.add(b)
             b <<= 1
-        dtypes = dict.fromkeys((cfg.dtype, *cfg.pretrace_dtypes))
+        dtypes = self._warm_dtypes()
         nprobes: dict = {}  # parsed spec -> the first spelling of it
         for npb in (cfg.nprobe, *cfg.pretrace_nprobes):
             nprobes.setdefault(parse_nprobe(npb), npb)
         warm = getattr(get_backend(cfg.backend), "warm", None)
         if warm is not None:
-            warm(self.topology, tuple(dtypes), self.device)
+            warm(self.topology, dtypes, self.device)
         data = np.asarray(self.topology.data, np.float32)
         for size in sorted(sizes):
             qs = np.resize(data[: min(len(data), size)], (size, self._dim))
@@ -503,7 +521,7 @@ class AnnServer:
         # replace the attribute concurrently (atomic store from the loop
         # thread), and every engine call in this flush must answer against
         # one consistent generation
-        topo = self.topology
+        topo = self._executing = self.topology
         # key on the *parsed* nprobe spec so equivalent forms ("auto" vs
         # ("auto", DEFAULT_AUTO_MARGIN), 2 vs np.int64(2)) share one
         # engine call instead of splitting the batch; dtype is already
@@ -541,4 +559,5 @@ class AnnServer:
             rerank_s = stages.get("search.rerank", 0.0)
             for j, i in enumerate(idxs):
                 out[i] = (ids[j], m, t0, t1, rerank_s)
+        self._executing = None
         return out  # type: ignore[return-value]

@@ -76,6 +76,23 @@ out = asyncio.run(serve_one())
 direct, _ = search(res.topology(ds.data), ds.queries[:1], 5, width=16,
                   device="cpu")
 assert (out.ids == direct[0]).all()
+import tempfile
+import repro_torch.durability, repro_torch.live
+from repro_torch.live import LiveConfig, LiveIndex
+
+li = LiveIndex.from_build(res, ds.data, cfg, LiveConfig(), device="cpu")
+li.prepare("uint8")
+with tempfile.TemporaryDirectory() as root:
+    li.save(root)
+    gids = li.insert_batch(ds.queries[:4] + 0.01)
+    li.delete_batch(gids[:1])
+    li.close()
+    back = LiveIndex.load(root, cfg, LiveConfig(), device="cpu")
+    assert back.wal_seq == 2 and back.n_vectors == len(ds.data) + 4
+    found, _ = search(back.snapshot(), ds.queries[1:4] + 0.01, 1, width=16,
+                      device="cpu")
+    assert (found[:, 0] == gids[1:]).all()
+    back.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -107,7 +124,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core.builder import build_diskann, build_scalegann
     from repro_torch.core.vamana import build_shard_index_vamana
     from repro_torch.data.synthetic import make_clustered
-    from repro_torch.search import search, topology_from_arrays
+    from repro_torch.search import (ShardTopology, search,
+                                    topology_from_arrays)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
@@ -131,6 +149,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                         build_degree=8))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_shard_index_vamana(data, IndexConfig(degree=4, build_degree=8))
+    from repro_torch.live import LiveIndex
+    topo = ShardTopology(data=data, shard_ids=[np.arange(64)],
+                         shard_graphs=[graph], centroids=data[:1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LiveIndex.from_topology(topo, IndexConfig(degree=4, build_degree=8))
     assert resolve_device("cpu").type == "cpu"
 
 
