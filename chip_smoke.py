@@ -2,6 +2,7 @@
 """Smoke run of ``repro_torch`` on one NVIDIA H100.
 
     python3 chip_smoke.py [--n 1000000] [--queries 10000] [--vamana-n 50000]
+                          [--fleet-n 200000]
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
    and the build of the four CUDA sources (one ``nvcc`` per source, in
@@ -88,7 +89,26 @@
    uint8 exact, f32 99.9% of ids), one Vamana round's prune and reverse
    edges on the card against the CPU on integer points (equal), and K3 at
    the build shape against its plain version (ids and counters on 99.9%).
-8. LM main path, counters zeroed just before and read just after:
+8. Fleet phase, counters zeroed just before and read just after:
+   ``make_clustered(fleet_n, 128, n_queries=2000, seed=2)`` (ground truth
+   from K4), ``calibrate_runtime`` on real ``fused`` builds at 256, 512
+   and 1024 rows, and ``build_scalegann_fleet`` on two workers (each on
+   its own stream) with the calibrated model, ``fused`` Vamana builds
+   (every round one K3 launch), an on-disk ``CheckpointStore`` every 128
+   rounds and on notice, a ``Tracer`` and a seeded ``PreemptionInjector``
+   (mean lifetime 300 rounds, notice 2 rounds, and a notice-less kill of
+   the largest shard between two checkpoints); the merged index searched
+   at k=10, width=64, f32.  Gates: preemptions, a notice, a resume and
+   lost rounds; every preempted shard's graph and distance count equal to
+   its uninterrupted build on the card; ``check_fleet_trace``; K3's
+   launches during the build and ``fleet_rounds_total`` equal to the
+   rounds completed; no checkpoint left behind.  Prints one ``fleet
+   {...}`` line: phase times, rounds (two workers against alone),
+   checkpoint saves and loads, the calibration's error against each
+   shard that was not preempted, the cost at the paper's V100 rates (a
+   model input, not a measurement), recall@10 and what a round's state
+   costs at the largest shard (device clone against host copy).
+9. LM main path, counters zeroed just before and read just after:
    TinyLlama-1.1B at full width (22 layers, d_model 2048, GQA 32/4) with
    seeded random weights in bf16, ``ServeEngine`` with 8 slots and
    max_len 2048 serving 12 greedy requests (prompts of 512–1024 tokens,
@@ -96,7 +116,7 @@
    wave, K6 once per layer and decode step.  Then one prefill and three
    decode steps under torch.profiler: host wall time against device busy
    time, and the kernels that take it.
-9. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
+10. K5 against its plain version in bf16 (rtol=atol=8e-3) at each wave's
    shape of the LM path (ragged last tiles), at head dims 16, 32 and 128,
    non-causal, S < T and GQA groups 1 and 8 (with the share of outputs
    bit-equal to the plain version), then at q [8,32,1024,64], k/v
@@ -110,7 +130,7 @@
    included.  SDPA is timed as the yardstick.  K6's scratch, kept per
    stream: grown between launches back to back, used by a captured CUDA
    graph on new inputs, and refused when a capture would need more.
-10. The small TinyLlama config in f32, prefill and 4 decode steps on the
+11. The small TinyLlama config in f32, prefill and 4 decode steps on the
    card and on the CPU's plain path: logits to 1e-4, greedy tokens equal.
 
 Prints one ``{"kernels": [...]}`` line, then the card's line, then
@@ -141,6 +161,10 @@ H100_HBM_BYTES = 3.35e12    # HBM3 bytes per second
 
 ANN_KERNELS = ("pairwise_distance", "pairwise_distance_u8", "fused_beam", "knn")
 LIVE_INSERTS, LIVE_CALLS, LIVE_QPS = 50_000, 10, 1000.0  # the live phase
+# rounds between the fleet's periodic checkpoints: at 64 the periodic saves
+# took 20% of the fleet's wall on an H100 80GB HBM3 host at 700 W, at 128
+# 5% (PERF.md §6); the target is ~10%
+FLEET_CKPT_EVERY = 128
 LM_KERNELS = ("flash_attention", "flash_decode")
 LM_NEW_TOKENS = 64
 
@@ -1989,6 +2013,265 @@ def check_k3_build_shape(torch, first):
          "K3 at the build shape: distances disagree")
 
 
+def fleet_store(directory):
+    """A ``CheckpointStore`` over ``directory`` that times each save (with
+    its shard and round) and each load that finds a checkpoint, with the
+    file's bytes."""
+    from repro_torch.fleet import CheckpointStore
+
+    class TimedStore(CheckpointStore):
+        def __init__(self):
+            super().__init__(directory)
+            self.saves: list = []  # (shard, round, seconds, bytes)
+            self.loads: list = []  # (seconds, bytes)
+
+        def _bytes(self, shard: int) -> int:
+            path = self.directory / f"shard{shard:05d}.ckpt.npz"
+            return path.stat().st_size if path.exists() else 0
+
+        def save(self, ckpt):
+            t0 = time.perf_counter()
+            super().save(ckpt)
+            self.saves.append((ckpt.shard, ckpt.round_idx,
+                               time.perf_counter() - t0,
+                               self._bytes(ckpt.shard)))
+
+        def load(self, shard):
+            t0 = time.perf_counter()
+            got = super().load(shard)
+            if got is not None:
+                self.loads.append((time.perf_counter() - t0,
+                                   self._bytes(shard)))
+            return got
+
+    return TimedStore()
+
+
+def io_stats(rows: list) -> dict:
+    secs = [s for s, _ in rows]
+    nbytes = [b for _, b in rows]
+    return {"n": len(rows), "sum_s": sum(secs),
+            "mean_s": sum(secs) / len(rows) if rows else 0.0,
+            "max_s": max(secs, default=0.0),
+            "mean_bytes": sum(nbytes) / len(rows) if rows else 0.0,
+            "max_bytes": max(nbytes, default=0)}
+
+
+def lazy_copy_ms(torch, n: int, r: int) -> dict:
+    """What a round's state costs at an ``[n, r]`` int32 graph on the card:
+    the device clone it now takes (CUDA events, 20 launches) against the
+    int64 host copy it took before (host wall, synchronised, 5 copies)."""
+    import numpy as np
+
+    g = torch.randint(0, n, (n, r), dtype=torch.int32, device="cuda")
+    clone_ms = events_ms(torch, g.clone, reps=20)
+    g.cpu().numpy().astype(np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        g.cpu().numpy().astype(np.int64)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    return {"rows": n, "clone_ms": clone_ms, "host_copy_ms": host_ms}
+
+
+def fleet_path(torch, args):
+    """The spot-fleet build on the card, counters zeroed just before and
+    read just after: ``make_clustered(fleet_n, 128, n_queries=2000,
+    seed=2)`` (ground truth from K4), ``calibrate_runtime`` on real
+    ``fused`` builds at 256, 512 and 1024 rows, then
+    ``build_scalegann_fleet`` with the ``IndexConfig`` defaults on two
+    workers (each on its own stream), the calibrated model, ``fused``
+    builds (every round one K3 launch), a ``CheckpointStore`` on disk
+    every ``FLEET_CKPT_EVERY`` rounds and on notice, a ``Tracer``, and a
+    ``PreemptionInjector`` (seed 0, mean lifetime 300 rounds, notice 2
+    rounds, and a notice-less kill of the largest shard's first attempt
+    half-way between two periodic checkpoints); then the merged index
+    searched at k=10, width=64, f32 on ``fused``.  After the counters are
+    read, every shard that took two attempts or more is built again
+    uninterrupted on the default stream and must give the same graph and
+    distance count.  Gates: preemptions >= 2, a notice, a resume, lost
+    rounds; the largest shard's kill; ``check_fleet_trace``;
+    ``fleet_rounds_total`` and K3's launches during the build equal to
+    the rounds completed, which equal every shard's rounds plus the lost
+    ones; no checkpoint left in the store or on disk."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs.base import IndexConfig
+    from repro_torch.core import vamana
+    from repro_torch.core.partition import partition
+    from repro_torch.core.scheduler import (CPU_MACHINE, V100_SPOT,
+                                            calibrate_runtime)
+    from repro_torch.data.synthetic import make_clustered, recall_at
+    from repro_torch.fleet import PreemptionInjector, build_scalegann_fleet
+    from repro_torch.fleet import executor
+    from repro_torch.kernels import LAUNCHES, reset_counts
+    from repro_torch.telemetry import Tracer, check_fleet_trace
+
+    cfg = IndexConfig()
+    every = FLEET_CKPT_EVERY
+    reset_counts()
+    t_phase = time.perf_counter()
+    ds = make_clustered(args.fleet_n, 128, n_queries=2000, seed=2)
+    data = ds.data
+    # the partition is deterministic: read the largest shard off it first
+    sizes = [len(s.ids) for s in partition(data, cfg).shards]
+    big = int(np.argmax(sizes))
+    kill_at = every + every // 2
+    need(2 * -(-sizes[big] // 256) > kill_at,
+         f"the largest shard ({sizes[big]} rows) ends before round "
+         f"{kill_at}")
+    t0 = time.perf_counter()
+    rm = calibrate_runtime(None, data, (256, 512, 1024), cfg=cfg,
+                           backend="fused", seed=0)
+    calibrate_s = time.perf_counter() - t0
+    directory = ROOT / "build" / "fleet_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    store = fleet_store(directory)
+    inj = PreemptionInjector(seed=0, mean_lifetime_rounds=300.0,
+                             notice_rounds=2, kill_shard_at={big: kill_at})
+    tracer = Tracer()
+    built: list = []  # every ShardIndex the executor's builds return
+    build = executor.build_shard_index_vamana
+
+    def kept(*a, **kw):
+        idx = build(*a, **kw)
+        built.append(idx)
+        return idx
+
+    executor.build_shard_index_vamana = kept
+    k3_before = LAUNCHES["fused_beam"]
+    try:
+        out = build_scalegann_fleet(
+            data, cfg, n_workers=2, backend="fused", seed=0, injector=inj,
+            runtime_model=rm, checkpoint_store=store,
+            checkpoint_every_rounds=every, tracer=tracer)
+    finally:
+        executor.build_shard_index_vamana = build
+    torch.cuda.synchronize()
+    k3_build = LAUNCHES["fused_beam"] - k3_before
+    rep, res = out.report, out.build
+    need([len(s.ids) for s in res.shards] == sizes,
+         "the fleet's partition differs from the one read before it")
+    ids, _ = res.search(data, ds.queries, 10, backend="fused", width=64)
+    torch.cuda.synchronize()
+    recall = recall_at(ids, ds.gt, 10)
+    launches = ann_counts()
+    phase_s = time.perf_counter() - t_phase
+    log(f"fleet-phase launches {json.dumps(launches)}")
+
+    rounds_metric = rep.metrics["fleet_rounds_total"]["series"][0]["value"]
+    rounds_want = sum(2 * -(-n // 256) for n in sizes if n > 1)
+    trace = check_fleet_trace(tracer.to_chrome())
+    ckpt_spans = [e["dur"] / 1e6 for e in tracer.to_chrome()["traceEvents"]
+                  if e.get("name") == "fleet.checkpoint" and e["ph"] == "X"]
+    left = sorted(p.name for p in directory.iterdir())
+    log(f"fleet events {dict(collections.Counter(e[1] for e in rep.events))}"
+        f" injector {inj.events}")
+
+    # the baseline: each shard that was killed, built again uninterrupted
+    # on the default stream in this thread, same seed and batch
+    redo = [s for s, a in enumerate(rep.shard_attempts) if a >= 2]
+    t0 = time.perf_counter()
+    same = {}
+    for s in redo:
+        want = vamana.build_shard_index_vamana(
+            np.asarray(data[res.shards[s].ids]), cfg, seed=0,
+            backend="fused")
+        got = next(i for i in built if i.graph is res.shard_graphs[s])
+        same[s] = (np.array_equal(got.graph, want.graph)
+                   and got.n_distance_computations
+                   == want.n_distance_computations)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    alone_rounds = sum(2 * -(-sizes[s] // 256) for s in redo)
+    copy = lazy_copy_ms(torch, max(sizes), cfg.degree)
+
+    clean = [s for s, a in enumerate(rep.shard_attempts) if a == 1]
+    est_err = {s: (rm.estimate(sizes[s], V100_SPOT) - res.per_shard_s[s])
+               / res.per_shard_s[s] for s in clean}
+    # a save at a round that raised a notice is the notice's; the rest
+    # are periodic
+    noticed = {(e[3], e[4]) for e in rep.events if e[1] == "notice"}
+    periodic = [(t, b) for s, r, t, b in store.saves
+                if (s, f"round {r}") not in noticed]
+    on_notice = [(t, b) for s, r, t, b in store.saves
+                 if (s, f"round {r}") in noticed]
+    loads = io_stats(store.loads)
+    line = {
+        "n": args.fleet_n, "shards": len(sizes), "shard_rows": sizes,
+        "replica_proportion": res.stats["replica_proportion"],
+        "n_workers": rep.n_workers, "policy": rep.policy,
+        "checkpoint_every_rounds": every, "kill_shard_at": {big: kill_at},
+        "partition_s": rep.partition_s, "calibrate_s": calibrate_s,
+        "fleet_wall_s": rep.fleet_wall_s,
+        "accelerator_active_s": rep.accelerator_active_s,
+        "merge_s": rep.merge_s, "makespan_s": rep.makespan_s,
+        "phase_s": phase_s,
+        "n_preemptions": rep.n_preemptions, "n_notices": rep.n_notices,
+        "n_resumes": rep.n_resumes, "n_requeues": rep.n_requeues,
+        "shard_attempts": rep.shard_attempts,
+        "rounds_completed": rep.rounds_completed,
+        "rounds_lost": rep.rounds_lost,
+        "rounds_replayed": rep.rounds_completed - rounds_want,
+        "rounds_per_s_fleet": rep.rounds_completed / rep.fleet_wall_s,
+        "rounds_per_s_per_worker":
+            rep.rounds_completed / rep.accelerator_active_s,
+        "rounds_per_s_alone": alone_rounds / alone_s,
+        "k3_launches_build": k3_build,
+        "checkpoint_saves_periodic": io_stats(periodic),
+        "checkpoint_saves_on_notice": io_stats(on_notice),
+        "checkpoint_loads": loads,
+        "periodic_save_share_of_fleet_wall":
+            sum(t for t, _ in periodic) / rep.fleet_wall_s,
+        "checkpoint_span_s": sum(ckpt_spans),
+        "checkpoint_span_share_of_fleet_wall":
+            sum(ckpt_spans) / rep.fleet_wall_s,
+        "round_state": copy,
+        "calibration": {
+            "seconds_per_vector": rm.seconds_per_vector,
+            "fixed_overhead_s": rm.fixed_overhead_s,
+            "rel_error_unpreempted": est_err,
+            "mean_abs_rel_error": (sum(abs(v) for v in est_err.values())
+                                   / max(len(est_err), 1))},
+        "cost_model_inputs_not_measured": (
+            "priced at the paper's V100 SKU rates (V100 spot "
+            f"${V100_SPOT.price_per_hour}/h, CPU machine "
+            f"${CPU_MACHINE.price_per_hour}/h)"),
+        "cost": {**dataclasses.asdict(rep.cost), "total": rep.cost.total},
+        "recall_at_10": recall, "search": "k=10 width=64 f32 fused 2000 q",
+        "baseline_shards": redo, "baseline_equal": same,
+        "baseline_s": alone_s, "trace": trace,
+        "left_in_store": [s for s in range(len(sizes)) if s in store],
+        "left_on_disk": left,
+    }
+    log("fleet " + json.dumps(line))
+    need(rep.n_preemptions >= 2 and rep.n_notices >= 1
+         and rep.n_resumes >= 1 and rep.rounds_lost >= 1,
+         f"the fleet ate {rep.n_preemptions} preemptions, {rep.n_notices} "
+         f"notices, {rep.n_resumes} resumes, {rep.rounds_lost} lost rounds")
+    need(any(e[0] == "kill" and e[2] == big and e[3] == kill_at
+             for e in inj.events),
+         f"shard {big} was not killed at round {kill_at}")
+    need(redo and all(same.values()), f"preempted shards {redo}: a graph "
+         f"or distance count differs from its uninterrupted build {same}")
+    need(trace["ok"], f"check_fleet_trace failed: {trace}")
+    need(rounds_metric == rep.rounds_completed
+         == k3_build == rounds_want + rep.rounds_lost,
+         f"rounds: fleet_rounds_total {rounds_metric}, "
+         f"completed {rep.rounds_completed}, K3 launches {k3_build}, "
+         f"shards' rounds {rounds_want} + lost {rep.rounds_lost}")
+    need(not line["left_in_store"] and not left,
+         f"checkpoints left behind: {line['left_in_store']} {left}")
+    need(recall >= 0.3, f"fleet index recall@10 {recall:.4f} below 0.3")
+    for name in ("pairwise_distance", "fused_beam", "knn"):
+        need(launches[name] > 0, f"kernel {name} was not launched on the "
+             "fleet path")
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches
+
+
 def lm_path(torch):
     """TinyLlama-1.1B served at full width; returns the LM kernels' launch
     counts and the longest cache length a decode step attended."""
@@ -2400,6 +2683,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--vamana-n", type=int, default=50_000)
+    ap.add_argument("--fleet-n", type=int, default=200_000)
     args = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -2418,6 +2702,8 @@ def main(argv=None) -> int:
     log(f"CUT: DiskANN phase n={args.vamana_n} instead of 1,000,000 (its "
         "host merge and the run's time limit; 50,000 by default since the "
         "live phase)")
+    log(f"CUT: fleet phase n={args.fleet_n} instead of 1,000,000 (its host "
+        "merge and the run's time limit)")
     t_start = time.perf_counter()
     card = environment(torch)
     from repro_torch.kernels import LAUNCHES
@@ -2473,6 +2759,10 @@ def main(argv=None) -> int:
     check_k3_build_shape(torch, dk_first)
     del dk_ds, dk_res, dk_topo, dk_first
     log(f"DiskANN phases {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    for name, count in fleet_path(torch, args).items():
+        rows[name]["launches"] += count
+    log(f"fleet phase {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     lm_launches, longest, engine = lm_path(torch)
     for name, count in lm_launches.items():

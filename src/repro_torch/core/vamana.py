@@ -33,6 +33,7 @@ and distance count.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, Optional
@@ -61,17 +62,32 @@ class VamanaRoundState:
     schedule is derived from ``seed``, so this snapshot is everything a
     bit-compatible resume needs: restore ``graph`` and the
     ``(pass_idx, next_start)`` cursor and the remaining rounds replay
-    exactly.  ``graph`` is a host copy of the real rows (padding excluded).
+    exactly.
+
+    The state holds ``device_graph``, a clone of the round's graph on the
+    build's device (a device-to-device copy), and makes ``graph``, the
+    reference's ``[n, R]`` int64 host array, on its first read: a hook
+    that reads no graph this round (the fleet's, between checkpoints)
+    costs no host copy.  A state kept after the hook returns still reads
+    its own round's graph.  The host copy is made on ``stream``, the
+    stream the build ran on, whichever thread reads it.
     """
 
     round_idx: int  # completed rounds so far, across both α passes
     n_rounds_total: int
     pass_idx: int  # which α pass (0: α=1 pass, 1: α pass)
     next_start: int  # batch offset the *next* round would start at
-    graph: np.ndarray  # [n, R] int64 copy
+    device_graph: torch.Tensor  # [n, R] int32 clone of the round's graph
     n_distance_computations: int
     n: int = 0
     R: int = 0
+    stream: Optional[torch.cuda.Stream] = None  # None: not on a card
+
+    @functools.cached_property
+    def graph(self) -> np.ndarray:
+        """``[n, R]`` int64 host copy of the round's graph."""
+        with torch.cuda.stream(self.stream):  # None: a no-op
+            return self.device_graph.cpu().numpy().astype(np.int64)
 
 
 def _dists(data: np.ndarray, ids: np.ndarray, p: np.ndarray) -> np.ndarray:
@@ -337,9 +353,10 @@ def build_shard_index_vamana(
     batch (they are not counted).
 
     ``round_hook`` fires after every completed round with a
-    :class:`VamanaRoundState` (the graph copied to the host only then); a
-    hook that raises aborts the build at the round boundary.  ``resume``
-    is any object with ``pass_idx`` / ``next_start`` / ``graph`` /
+    :class:`VamanaRoundState` (a device clone of the graph, copied to the
+    host only when the hook reads it); a hook that raises aborts the
+    build at the round boundary.  ``resume`` is any object with
+    ``pass_idx`` / ``next_start`` / ``graph`` /
     ``n_distance_computations``: the build restores the graph and the
     round cursor and continues bit-compatibly (same ``seed`` /
     ``batch_size`` / ``alpha`` as the original build).  Per-round wall
@@ -392,6 +409,7 @@ def build_shard_index_vamana(
     counter = [torch.tensor(counted, dtype=torch.long, device=dev)]
     timed = stage_active()
     tr = current_tracer()
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     for pi, a in enumerate((1.0, alpha)):  # two passes per the paper
         if pi < start_pass:
             continue
@@ -433,10 +451,11 @@ def build_shard_index_vamana(
                     n_rounds_total=n_rounds_total,
                     pass_idx=pi,
                     next_start=s + nb,
-                    graph=graph.cpu().numpy().astype(np.int64),
+                    device_graph=graph.clone(),
                     n_distance_computations=counted,
                     n=n,
                     R=R,
+                    stream=stream,
                 ))
     return ShardIndex(
         graph=graph.cpu().numpy().astype(np.int32),

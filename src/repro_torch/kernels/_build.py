@@ -6,9 +6,10 @@ of the checkout, where ``<hash>`` is the source's content hash, so an edit
 rebuilds and an unchanged source is reused.  The library is loaded with
 ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 
-Launch counters are plain integers: each wrapper calls :func:`count` right
-where it launches its kernel, and nowhere else.  Each ``nvcc`` run is
-reported to :data:`on_build`, a hook that
+Launch counters are integers under a lock of their own (threads launch at
+once: the fleet's workers, a server beside a live index's writer): each
+wrapper calls :func:`count` right where it launches its kernel, and nowhere
+else.  Each ``nvcc`` run is reported to :data:`on_build`, a hook that
 :func:`repro_torch.telemetry.install_compile_listener` installs (this module
 imports nothing of telemetry).
 """
@@ -40,19 +41,22 @@ LAUNCHES: dict[str, int] = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # held through nvcc builds
+_COUNT_LOCK = threading.Lock()  # held for one increment
 
 # called as on_build(source, seconds) after every nvcc run, failed ones too
 on_build = None
 
 
 def count(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

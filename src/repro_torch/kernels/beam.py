@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import weakref
 
 import torch
@@ -265,22 +266,37 @@ def fused_beam_occupancy(x: torch.Tensor, r: int, ne: int, *, nq: int,
     return {"smem_bytes": int(smem), "blocks_per_sm": int(blocks)}
 
 
-# tensors whose ids were found in range: id -> (weak ref, version, lo, n)
+# tensors whose ids were found in range: id -> (weak ref, version, lo, n).
+# Threads launch K3 at once (the fleet's workers, a server beside a live
+# index's writer), so the table changes under a lock; an RLock, because a
+# tensor collected while the lock is held runs its callback in that thread
 _CHECKED: dict[int, tuple] = {}
+_CHECKED_LOCK = threading.RLock()
+
+
+def _forget(key: int, ref: weakref.ref) -> None:
+    with _CHECKED_LOCK:
+        if _CHECKED.get(key, (None,))[0] is ref:
+            del _CHECKED[key]
 
 
 def _ids_in_range(t: torch.Tensor, lo: int, n: int) -> bool:
     """Whether every id of ``t`` lies in [lo, n).  A check reads the whole
     tensor and waits for the card, so a tensor found in range is not read
-    again until it changes in place (its version moves)."""
+    again until it changes in place (its version moves).  The version is
+    taken before the read: a write that lands during it moves the version
+    past the cached one, so the next call checks again."""
     key = id(t)
-    hit = _CHECKED.get(key)
-    if hit is not None and hit[0]() is t and hit[1:] == (t._version, lo, n):
+    version = t._version
+    with _CHECKED_LOCK:
+        hit = _CHECKED.get(key)
+    if hit is not None and hit[0]() is t and hit[1:] == (version, lo, n):
         return True
     if t.numel() and (int(t.min()) < lo or int(t.max()) >= n):
         return False
-    _CHECKED[key] = (weakref.ref(t, lambda _, k=key: _CHECKED.pop(k, None)),
-                     t._version, lo, n)
+    ref = weakref.ref(t, functools.partial(_forget, key))
+    with _CHECKED_LOCK:
+        _CHECKED[key] = (ref, version, lo, n)
     return True
 
 

@@ -380,10 +380,10 @@ class AnnServer:
         # The engine runs in an executor thread: K3, K1 and K2 launch there
         # on torch.cuda.current_stream(dev), the default stream in that
         # thread as in any other.  The kernels' launch counters
-        # (kernels._build.LAUNCHES) and K3's id-range cache (beam._CHECKED)
-        # are plain dicts touched from that thread without a lock; that is
-        # safe because this loop hands the engine one batch at a time, and
-        # the warm-up finishes before the first batch.
+        # (kernels._build.count) and K3's id-range cache (beam._CHECKED)
+        # take locks of their own, so other threads may launch beside the
+        # engine (a live index's writer); this loop still hands the engine
+        # one batch at a time, after the warm-up has finished.
         loop = asyncio.get_running_loop()
         if self.config.pretrace and self.config.bucket_batches:
             # without bucketing the engine sees one shape per occupancy —

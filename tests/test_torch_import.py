@@ -1,8 +1,10 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor the ``repro``
 package (the subprocess below imports every module of the port's search,
 build, data, serving and telemetry paths, builds a DiskANN index and
-searches it on the ``torch`` and ``numpy`` backends, and serves one request
-through ``AnnServer``), and its entry points run on the card unless the CPU
+searches it on the ``torch`` and ``numpy`` backends, serves one request
+through ``AnnServer``, and runs a fleet build with a kill through
+``repro_torch.fleet`` and its scheduler and cost model), and its entry
+points run on the card unless the CPU
 is asked for — without CUDA they raise instead of carrying on quietly on
 the CPU."""
 
@@ -93,6 +95,16 @@ with tempfile.TemporaryDirectory() as root:
                       device="cpu")
     assert (found[:, 0] == gids[1:]).all()
     back.close()
+import repro_torch.core.cost_model, repro_torch.core.scheduler
+import repro_torch.fleet.checkpoint, repro_torch.fleet.executor
+import repro_torch.fleet.injector
+from repro_torch.core.scheduler import RuntimeModel
+from repro_torch.fleet import PreemptionInjector, build_scalegann_fleet
+
+fl = build_scalegann_fleet(ds.data, cfg, n_workers=2, device="cpu",
+                           injector=PreemptionInjector(kill_shard_at={0: 1}),
+                           runtime_model=RuntimeModel(1e-4))
+assert fl.report.n_preemptions == 1 and fl.report.cost.total > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -109,7 +121,12 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_package_sources_never_name_jax_or_reference():
-    for path in (SRC / "repro_torch").rglob("*.py"):
+    paths = sorted((SRC / "repro_torch").rglob("*.py"))
+    names = {p.relative_to(SRC / "repro_torch").as_posix() for p in paths}
+    assert {"fleet/__init__.py", "fleet/checkpoint.py", "fleet/executor.py",
+            "fleet/injector.py", "core/scheduler.py",
+            "core/cost_model.py"} <= names
+    for path in paths:
         for line in path.read_text().splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
@@ -154,6 +171,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                          shard_graphs=[graph], centroids=data[:1])
     with pytest.raises(RuntimeError, match="CUDA"):
         LiveIndex.from_topology(topo, IndexConfig(degree=4, build_degree=8))
+    from repro_torch.core.scheduler import RuntimeModel, calibrate_runtime
+    from repro_torch.fleet import build_scalegann_fleet
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_scalegann_fleet(data, IndexConfig(n_clusters=2, degree=4,
+                                                build_degree=8),
+                              runtime_model=RuntimeModel(1e-4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibrate_runtime(None, data, (16, 32), backend="torch")
     assert resolve_device("cpu").type == "cpu"
 
 

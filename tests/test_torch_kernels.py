@@ -231,3 +231,79 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     monkeypatch.setattr(tops, "_on_cuda", lambda a, b: True)
     tops.pairwise_distance(fake, fake)
     assert calls == ["kernel"]
+
+
+def _in_threads(n: int, fn) -> None:
+    """Run ``fn(i)`` in ``n`` threads at once under a short switch
+    interval, and re-raise the first failure."""
+    import sys
+    import threading
+
+    errors, start = [], threading.Barrier(n)
+
+    def run(i):
+        start.wait()
+        try:
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    if errors:
+        raise errors[0]
+
+
+def test_launch_counts_are_exact_under_threads(monkeypatch):
+    """Threads launch at once (the fleet's workers): 8 threads x 10,000
+    counts of one kernel lose none.  The counters' reads yield the
+    interpreter, so an increment without the lock would lose updates."""
+    import time
+
+    from repro_torch.kernels import _build
+
+    class Yielding(dict):
+        def __getitem__(self, key):
+            value = super().__getitem__(key)
+            time.sleep(0)  # another thread may run between read and write
+            return value
+
+    monkeypatch.setattr(_build, "LAUNCHES", Yielding(_build.LAUNCHES))
+    _build.reset_counts()
+    _in_threads(8, lambda i: [_build.count("fused_beam")
+                              for _ in range(10_000)])
+    assert _build.LAUNCHES["fused_beam"] == 80_000
+    assert sum(_build.LAUNCHES.values()) == 80_000
+
+
+def test_id_range_cache_under_threads():
+    """K3's id-range cache with threads checking their own graphs at once:
+    a graph found in range is cached, an in-place write that puts an id
+    out of range is seen by the next check, and a graph that dies leaves
+    no entry behind."""
+    import gc
+
+    def work(i):
+        for step in range(200):
+            g = torch.randint(0, 50, (64, 8), dtype=torch.int32)
+            assert tbeam._ids_in_range(g, 0, 50)
+            assert tbeam._ids_in_range(g, 0, 50)  # the cached answer
+            g[step % 64, i % 8] = 50 + i
+            assert not tbeam._ids_in_range(g, 0, 50)
+            g[step % 64, i % 8] = 0
+            assert tbeam._ids_in_range(g, 0, 50)
+
+    _in_threads(8, work)
+    gc.collect()
+    assert not any(ref() is not None and ref().dtype == torch.int32
+                   and ref().shape == (64, 8)
+                   for ref, *_ in tbeam._CHECKED.values())
