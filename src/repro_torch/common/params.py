@@ -5,10 +5,15 @@ leaves, each a (shape, logical axes, init rule, dtype) record.  From that
 one declaration come the concrete tensors (:func:`init_params`) and the
 parameter count (:func:`param_count`).  The init rules are the reference's:
 ``scaled_normal`` draws with std ``scale / sqrt(fan_in)``, ``normal`` with
-std ``scale``, ``embed`` with std ``0.02 * scale``, and ``ones``/``zeros``
-fill.  Draws come from one ``torch.Generator`` on the target device, so a
-1.1B-parameter model is made on the card without a host round trip; the
-numbers differ from ``jax.random``'s for the same seed.
+std ``scale``, ``embed`` with std ``0.02 * scale``, ``ones``/``zeros``
+fill, and a callable ``init(gen, shape, dtype, device)`` makes the leaf
+itself (the SSM's decay and step-size inits).  A leaf's declared ``dtype``
+wins over the tree's.  Draws come from one ``torch.Generator`` on the
+target device, in f32 pieces of at most :data:`INIT_PIECE` elements that
+are scaled and written into the leaf in its own dtype, so a leaf larger
+than the card's memory in f32 is made straight in bf16 (the pieces are the
+same whatever the dtype: a bf16 init equals the f32 init of the same seed,
+rounded).  The numbers differ from ``jax.random``'s for the same seed.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ class P:
     Attributes:
       shape: parameter shape.
       axes: logical axis names, one per dim (``None`` entries are unsharded).
-      init: one of 'normal', 'scaled_normal', 'zeros', 'ones', 'embed'.
+      init: one of 'normal', 'scaled_normal', 'zeros', 'ones', 'embed', or
+        a callable ``(gen, shape, dtype, device) -> tensor``.
       dtype: overrides the tree-level param dtype when set.
       scale: stddev multiplier for normal inits.
       fan_in_axes: dims whose product is the fan-in for 'scaled_normal'.
@@ -39,7 +45,7 @@ class P:
 
     shape: tuple
     axes: tuple
-    init: str = "scaled_normal"
+    init: Any = "scaled_normal"
     dtype: Any = None
     scale: float = 1.0
     fan_in_axes: tuple = (0,)
@@ -67,6 +73,18 @@ def leaves(tree: Tree) -> list:
     return out
 
 
+def tree_map_with_paths(fn: Callable, tree: Tree, prefix: str = "") -> Tree:
+    """Apply ``fn(dot.path, leaf)`` to the leaves of nested dicts and lists,
+    with the paths of :func:`leaves_with_paths`."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_paths(fn, v, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_paths(fn, t, f"{prefix}{i}.")
+                for i, t in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
 def leaves_with_paths(tree: Tree, prefix: str = "") -> list[tuple[str, Any]]:
     """``[(dot.path, leaf)]`` in the order of :func:`leaves`."""
     if isinstance(tree, dict):
@@ -78,8 +96,13 @@ def leaves_with_paths(tree: Tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix[:-1], tree)]
 
 
+INIT_PIECE = 1 << 26  # elements of one f32 draw (256 MB)
+
+
 def _init_one(p: P, gen: torch.Generator, dtype, device) -> torch.Tensor:
     dtype = p.dtype or dtype
+    if callable(p.init):
+        return p.init(gen, p.shape, dtype, device)
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
@@ -93,9 +116,14 @@ def _init_one(p: P, gen: torch.Generator, dtype, device) -> torch.Tensor:
         std = p.scale / math.sqrt(fan_in)
     else:
         raise ValueError(f"unknown init {p.init!r}")
-    x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return x.mul_(std).to(dtype)
+    out = torch.empty(p.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), INIT_PIECE):
+        piece = flat[i:i + INIT_PIECE]
+        x = torch.randn(piece.numel(), generator=gen, dtype=torch.float32,
+                        device=device)
+        piece.copy_(x.mul_(std))
+    return out
 
 
 def init_params(tree: Tree, seed: int = 0, *, dtype=torch.float32,

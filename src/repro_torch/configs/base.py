@@ -4,7 +4,8 @@ config (the paper's own knobs, §IV–V).
 
 Every architecture registers a :class:`ModelConfig` from its module
 ``repro_torch/configs/<arch>.py``; :func:`get_arch` imports it on first
-use.  The numbers are the reference's, module for module.
+use.  The numbers are the reference's, module for module.  The dry-run's
+shapes, cells and meshes are not ported.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import math
+from typing import Optional
 
 # ---------------------------------------------------------------------------
 # Model configs
@@ -19,13 +21,32 @@ import math
 
 
 @dataclasses.dataclass(frozen=True)
-class ModelConfig:
-    """The dense fields of the reference's ``ModelConfig``: the ones this
-    port reads.  A family's own fields (MoE, SSM, encoder, patches) come
-    with the slice that ports it."""
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int  # per-expert hidden dim
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    # layers l with l % period == offset are MoE layers (period=1 → all MoE)
+    layer_period: int = 1
+    layer_offset: int = 0
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2  # d_inner = expand * d_model
+    dt_rank: int = 0  # 0 → ceil(d_model / 16)
+    chunk: int = 256  # chunked-scan block length
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
     name: str
-    family: str  # dense (other families raise in models/model.py)
+    family: str  # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,15 +57,71 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (Jamba): layers l with l % attn_period == attn_offset use
+    # attention, all other layers use the SSM mixer.
+    attn_period: int = 0
+    attn_offset: int = 0
+    # Arctic-style dense FFN residual in parallel with the MoE FFN.
+    dense_residual_ff: int = 0
+    # enc-dec (Whisper): encoder depth + fixed frame count from the (stubbed)
+    # conv frontend; decoder uses self-attn + cross-attn.
+    n_encoder_layers: int = 0
+    n_audio_frames: int = 0
+    # vlm: number of patch embeddings prepended by the (stubbed) ViT frontend.
+    n_patches: int = 0
+    # substrate knobs, kept so that configs compare field for field with the
+    # reference's; the serving path reads only mixer_chunk and
+    # moe_dispatch_groups (training, sharding and the fa2 / seq_shard
+    # attention branches are not ported)
+    param_dtype: str = "bfloat16"
+    activation_dtype: str = "bfloat16"
+    remat: str = "full"  # none | full | dots
+    optimizer: str = "adamw"  # adamw | adafactor
+    attn_chunk: int = 1024
+    attn_impl: str = "scan"
+    attn_seq_shard: bool = False
+    # MoE dispatch groups: tokens are cut into this many groups, each with
+    # its own capacity and its own cumulative sum (1 = one global group)
+    moe_dispatch_groups: int = 1
+    # recurrent-mixer chunk override (RWKV/Mamba); 0 → family default
+    mixer_chunk: int = 0
+    notes: str = ""
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        if self.moe is None:
+            return False
+        return layer_idx % self.moe.layer_period == self.moe.layer_offset
+
+    def is_attn_layer(self, layer_idx: int) -> bool:
+        if self.family == "ssm":
+            return False
+        if self.attn_period <= 0:
+            return True
+        return layer_idx % self.attn_period == self.attn_offset
+
 
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
+
+ARCH_IDS = [
+    "phi3_medium_14b",
+    "granite_3_2b",
+    "tinyllama_1_1b",
+    "phi3_mini_3_8b",
+    "whisper_base",
+    "kimi_k2_1t_a32b",
+    "arctic_480b",
+    "internvl2_76b",
+    "jamba_v0_1_52b",
+    "rwkv6_1_6b",
+]
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -61,18 +138,43 @@ def get_arch(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def all_archs() -> dict[str, ModelConfig]:
+    return {a: get_arch(a) for a in ARCH_IDS}
+
+
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family config for CPU smoke tests: small width and
-    depth, tiny vocab (the reference's numbers for a dense model)."""
+    """Reduced same-family config for CPU smoke tests: small width/depth,
+    few experts, tiny vocab — same layer plan/period structure (the
+    reference's numbers)."""
+    period = 1
+    if cfg.attn_period > 0:
+        period = cfg.attn_period
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe.layer_period)
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2), d_ff=64
+        )
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = dataclasses.replace(cfg.ssm, d_state=8, chunk=16)
     return dataclasses.replace(
         cfg,
-        n_layers=2,
+        n_layers=2 * period,
         d_model=64,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
         head_dim=16,
         d_ff=128,
         vocab_size=256,
+        moe=moe,
+        ssm=ssm,
+        n_encoder_layers=min(cfg.n_encoder_layers, 2),
+        n_audio_frames=min(cfg.n_audio_frames, 32) if cfg.n_audio_frames else 0,
+        n_patches=min(cfg.n_patches, 8) if cfg.n_patches else 0,
+        dense_residual_ff=64 if cfg.dense_residual_ff else 0,
+        remat="none",
     )
 
 

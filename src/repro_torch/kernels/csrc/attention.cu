@@ -36,7 +36,7 @@
 //     score is multiplied by scale*log2(e) after the MMA and fed to the
 //     SFU's exp2 (ex2.approx, ~2^-22 relative).  For Dh 16 and 64 the
 //     default scale is a power of two, so score*scale equals the
-//     reference's pre-scaled product exactly; for Dh 32 and 128 and any
+//     reference's pre-scaled product exactly; for Dh 32, 96 and 128 and any
 //     caller's scale it differs by one f32 rounding.  Folding log2(e) adds
 //     ~2^-23 relative to the exponent's argument in every case.
 //   * Masks run only on edge tiles (past T, or across the causal diagonal);
@@ -61,6 +61,13 @@
 // owns a 4x4 patch of the 64x64 score tile and a 4 x Dh/16 patch of the
 // output, so the row statistics reduce across a half-warp with shuffles.
 // Shared rows are padded by 4 floats so the float4 reads hit distinct banks.
+//
+// Head dims 16, 32, 64, 96 and 128 are built (phi3-mini's is 96).  Every path
+// steps Dh in 16s (the k16 MMA steps, DH/16 output columns a thread in the
+// f32 kernel, DH/16 ldmatrix.x4 pairs of 8-wide tiles, 16-byte copies), so
+// 96 needs no power of two: its padded rows (208 bytes in bf16, 400 in f32)
+// keep 16-byte alignment and ldmatrix's 8 rows on distinct banks.  At Dh 96
+// the MMA kernel keeps the 2-blocks-an-SM register cap of Dh 128.
 //
 // K6 (flash_decode_split): bound by the bytes of K and V up to cache_len
 // (3.35 TB/s); about one FLOP a byte at GQA group 8, so FP32 FMAs, not the
@@ -876,6 +883,7 @@ int prefill_dh(int dh, const void* q, const void* k, const void* v, void* out,
     REPRO_PREFILL_CASE(16)
     REPRO_PREFILL_CASE(32)
     REPRO_PREFILL_CASE(64)
+    REPRO_PREFILL_CASE(96)
     REPRO_PREFILL_CASE(128)
   }
 #undef REPRO_PREFILL_CASE
@@ -894,6 +902,7 @@ int decode_dh(int dh, const void* q, const void* kc, const void* vc, const int* 
     REPRO_DECODE_CASE(16)
     REPRO_DECODE_CASE(32)
     REPRO_DECODE_CASE(64)
+    REPRO_DECODE_CASE(96)
     REPRO_DECODE_CASE(128)
   }
 #undef REPRO_DECODE_CASE
@@ -910,6 +919,8 @@ extern "C" size_t repro_flash_decode_smem(int group, int dh, int chunk, int bf16
     case 65: return decode_smem_bytes<__nv_bfloat16, 32>(group, chunk);
     case 128: return decode_smem_bytes<float, 64>(group, chunk);
     case 129: return decode_smem_bytes<__nv_bfloat16, 64>(group, chunk);
+    case 192: return decode_smem_bytes<float, 96>(group, chunk);
+    case 193: return decode_smem_bytes<__nv_bfloat16, 96>(group, chunk);
     case 256: return decode_smem_bytes<float, 128>(group, chunk);
     case 257: return decode_smem_bytes<__nv_bfloat16, 128>(group, chunk);
   }

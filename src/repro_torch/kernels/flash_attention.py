@@ -7,7 +7,7 @@ CPU tensor.
 
 Both kernels take f32 or bf16, keep scores, probabilities and sums in f32,
 and mask their own ragged edges: no sequence length has to be a multiple
-of a tile.  Head dims 16, 32, 64 and 128 are built.  K5 in bf16 runs its
+of a tile.  Head dims 16, 32, 64, 96 and 128 are built.  K5 in bf16 runs its
 products on the tensor cores (bf16 x bf16 -> f32, exact products) and
 multiplies V by P split into a bf16 hi + lo pair, so P keeps 16
 significant bits; K5 in f32 and K6 use FP32 FMAs only (no tensor cores, no
@@ -32,7 +32,7 @@ __all__ = ["decode_plan", "flash_attention_cuda", "flash_attention_plain",
            "flash_attention_single_p_cuda", "flash_decode_cuda",
            "flash_decode_plain"]
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may take on Hopper
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 _TILE = 64  # keys per K6 tile

@@ -1,2 +1,3 @@
-"""Language models of the port (counterpart of ``repro/models``): the dense
-family's prefill and decode, on the card through K5 and K6."""
+"""Language models of the port (counterpart of ``repro/models``): every
+family's forward, prefill and decode (dense, MoE, hybrid Mamba, RWKV6,
+Whisper encoder-decoder, VLM), on the card through K5 and K6."""

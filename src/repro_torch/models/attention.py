@@ -1,11 +1,16 @@
-"""GQA attention with RoPE, prefill and decode paths (counterpart of
+"""GQA attention with RoPE or learned positions: full-sequence, prefill,
+decode and cross-attention paths (counterpart of
 ``repro/models/attention.py``).
 
-Both paths go through :mod:`repro_torch.kernels.ops`: prefill through
-``flash_attention`` (K5 on the card), decode through ``flash_decode`` (K6).
-Layouts are the reference's: activations [B, S, D], heads [B, H, S, Dh],
-weights [in, out].  The training path and whisper's projection biases and
-cross-attention are not ported.
+Every path goes through :mod:`repro_torch.kernels.ops`: ``attn_forward``,
+``attn_prefill`` and ``cross_attn_forward`` through ``flash_attention``
+(K5 on the card; the reference's ``flash_attention_jnp`` and its serving
+kernel compute the same function), ``attn_decode`` and
+``cross_attn_decode`` through ``flash_decode`` (K6).  Layouts are the
+reference's: activations [B, S, D], heads [B, H, S, Dh], weights
+[in, out].  Whisper's projections carry biases on q, v and the output
+(``AttnDims.bias``); ``rope_theta == 0`` means no RoPE.  The training
+path's ``fa2`` and ``seq_shard`` branches are not ported.
 """
 
 from __future__ import annotations
@@ -26,33 +31,67 @@ class AttnDims:
     n_kv_heads: int
     head_dim: int
     rope_theta: float  # 0.0 → no RoPE (learned positions upstream)
+    bias: bool = False  # whisper-style projection biases
 
 
 def attn_p(dims: AttnDims) -> dict:
     h = dims.n_heads * dims.head_dim
     kv = dims.n_kv_heads * dims.head_dim
-    return {
+    p = {
         "wq": P(shape=(dims.d_model, h), axes=("embed", "heads")),
         "wk": P(shape=(dims.d_model, kv), axes=("embed", "kv")),
         "wv": P(shape=(dims.d_model, kv), axes=("embed", "kv")),
         "wo": P(shape=(h, dims.d_model), axes=("heads", "embed")),
     }
+    if dims.bias:
+        p.update(
+            bq=P(shape=(h,), axes=("heads",), init="zeros"),
+            bv=P(shape=(kv,), axes=("kv",), init="zeros"),
+            bo=P(shape=(dims.d_model,), axes=("embed",), init="zeros"),
+        )
+    return p
+
+
+def _heads(a: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """[B, S, n * Dh] → [B, n, S, Dh]."""
+    b, s, _ = a.shape
+    return a.reshape(b, s, n, dh).transpose(1, 2)
+
+
+def _q(x: torch.Tensor, p, dims: AttnDims) -> torch.Tensor:
+    q = x @ p["wq"]
+    return q + p["bq"] if dims.bias else q
+
+
+def _kv(x: torch.Tensor, p, dims: AttnDims):
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    return k, (v + p["bv"] if dims.bias else v)
 
 
 def _project_qkv(x: torch.Tensor, p, dims: AttnDims):
-    b, s, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    q = q.reshape(b, s, dims.n_heads, dims.head_dim).transpose(1, 2)
-    k = k.reshape(b, s, dims.n_kv_heads, dims.head_dim).transpose(1, 2)
-    v = v.reshape(b, s, dims.n_kv_heads, dims.head_dim).transpose(1, 2)
-    return q, k, v
+    k, v = _kv(x, p, dims)
+    return (_heads(_q(x, p, dims), dims.n_heads, dims.head_dim),
+            _heads(k, dims.n_kv_heads, dims.head_dim),
+            _heads(v, dims.n_kv_heads, dims.head_dim))
+
+
+def _out(o: torch.Tensor, p, dims: AttnDims) -> torch.Tensor:
+    """[..., H * Dh] → [..., D] through wo (and bo)."""
+    out = o @ p["wo"]
+    return out + p["bo"] if dims.bias else out
 
 
 def _merge_heads(o: torch.Tensor, p, dims: AttnDims) -> torch.Tensor:
     b, h, s, dh = o.shape
-    return o.transpose(1, 2).reshape(b, s, h * dh) @ p["wo"]
+    return _out(o.transpose(1, 2).reshape(b, s, h * dh), p, dims)
+
+
+def attn_forward(x: torch.Tensor, p, dims: AttnDims, rope, *,
+                 causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention. x: [B, S, D] → [B, S, D].  ``rope`` is as
+    for :func:`attn_prefill`."""
+    return attn_prefill(x, p, dims, rope, causal=causal)[0]
 
 
 def attn_prefill(x: torch.Tensor, p, dims: AttnDims, rope, *,
@@ -89,10 +128,8 @@ def attn_decode(x: torch.Tensor, p, cache: dict, pos: int, dims: AttnDims,
     positions [0, pos] of every row.  Returns (out [B, D], the same cache
     dict)."""
     b, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    q = q.reshape(b, dims.n_heads, dims.head_dim)
+    q = _q(x, p, dims).reshape(b, dims.n_heads, dims.head_dim)
+    k, v = _kv(x, p, dims)
     k = k.reshape(b, dims.n_kv_heads, 1, dims.head_dim)
     v = v.reshape(b, dims.n_kv_heads, 1, dims.head_dim)
     if rope is not None:
@@ -102,4 +139,37 @@ def attn_decode(x: torch.Tensor, p, cache: dict, pos: int, dims: AttnDims,
     k_cache[:, :, pos:pos + 1] = k.to(k_cache.dtype)
     v_cache[:, :, pos:pos + 1] = v.to(v_cache.dtype)
     o = ops.flash_decode(q, k_cache, v_cache, lens)  # [B, H, Dh]
-    return o.reshape(b, -1) @ p["wo"], cache
+    return _out(o.reshape(b, -1), p, dims), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder): query from x, KV from encoder memory.
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_kv(memory: torch.Tensor, p, dims: AttnDims) -> dict:
+    """The cross-attention KV cache {k, v: [B, Hkv, F, Dh]} (contiguous)
+    from the encoder's output [B, F, D], made once per request."""
+    k, v = _kv(memory, p, dims)
+    return {"k": _heads(k, dims.n_kv_heads, dims.head_dim).contiguous(),
+            "v": _heads(v, dims.n_kv_heads, dims.head_dim).contiguous()}
+
+
+def cross_attn_forward(x: torch.Tensor, p, kv: dict,
+                       dims: AttnDims) -> torch.Tensor:
+    """x: [B, S, D] queries over fixed memory KV ([B, Hkv, F, Dh]),
+    non-causal (K5 at S ≠ F on the card)."""
+    q = _heads(_q(x, p, dims), dims.n_heads, dims.head_dim)
+    o = ops.flash_attention(q, kv["k"], kv["v"], causal=False)
+    return _merge_heads(o, p, dims)
+
+
+def cross_attn_decode(x: torch.Tensor, p, kv: dict, dims: AttnDims,
+                      lens: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention. x: [B, D] over memory KV [B, Hkv, F,
+    Dh]; ``lens`` is F for every row (K6), made once per step by the
+    caller."""
+    b, _ = x.shape
+    q = _q(x, p, dims).reshape(b, dims.n_heads, dims.head_dim)
+    o = ops.flash_decode(q, kv["k"], kv["v"], lens)
+    return _out(o.reshape(b, -1), p, dims)

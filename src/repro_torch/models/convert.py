@@ -3,10 +3,13 @@ counterpart in the reference).
 
 :func:`params_from_jax` takes the reference's parameter tree with every
 leaf already a numpy array (``jax.tree.map(np.asarray, params)``), shaped
-by ``repro.models.model.param_spec`` — ``blocks`` a list of one period's
-layers with stacked ``[n_layers // period, ...]`` leaves — and returns the
-port's parameters on ``device``, so that both packages compute the same
-function on the same weights.  This module never sees a JAX array.
+by ``repro.models.model.param_spec`` — ``blocks`` (and Whisper's
+``enc_blocks``) a list of one period's layers with stacked
+``[n_layers // period, ...]`` leaves, beside the embeddings, Whisper's
+learned positions and final encoder norm, and the VLM's projector — and
+returns the port's parameters on ``device``, so that both packages compute
+the same function on the same weights.  Every leaf keeps its dtype.  This
+module never sees a JAX array.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> nn.Module:
     ``device`` (the card unless the CPU is asked).  Raises when the tree's
     structure or any leaf's shape differs from the port's spec."""
     device = resolve_device(device)
-    spec = param_spec(cfg)
+    # Whisper's decoder positions are sized by the reference's max_seq_len
+    n_pos = np.shape(tree["dec_pos"])[0] if "dec_pos" in tree else 0
+    spec = param_spec(cfg, max_seq_len=n_pos)
     specs = dict(par.leaves_with_paths(spec))
     got = dict(par.leaves_with_paths(tree))
     if set(specs) != set(got):

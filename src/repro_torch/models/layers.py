@@ -1,9 +1,9 @@
 """Shared layer primitives (counterpart of ``repro/models/layers.py``):
-norms, RoPE, the SwiGLU MLP, embeddings.
+norms, RoPE, the SwiGLU and GELU MLPs, embeddings.
 
 Functions over parameter dicts declared with :class:`P`; ``-1`` in a
 declared shape is resolved by :func:`sized` from an axis-name → size map.
-Norms, SiLU and RoPE compute in f32 and round back to the input's dtype,
+Norms, SiLU, GELU and RoPE compute in f32 and round back to the input's dtype,
 as the reference does.  Matrix products run in the input's dtype
 (``torch.matmul``; no TF32 for f32).
 """
@@ -99,6 +99,27 @@ def swiglu(x: torch.Tensor, p) -> torch.Tensor:
     u = x @ p["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ p["w_down"]
+
+
+def gelu_mlp_p() -> dict:
+    """Plain GELU MLP (whisper)."""
+    return {
+        "w_in": P(shape=(-1, -1), axes=("embed", "mlp")),
+        "b_in": P(shape=(-1,), axes=("mlp",), init="zeros"),
+        "w_out": P(shape=(-1, -1), axes=("mlp", "embed")),
+        "b_out": P(shape=(-1,), axes=("embed",), init="zeros"),
+    }
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in f32, rounded to x's dtype: the tanh approximation, which is
+    ``jax.nn.gelu``'s default."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
+    h = gelu(x @ p["w_in"] + p["b_in"])
+    return h @ p["w_out"] + p["b_out"]
 
 
 # ---------------------------------------------------------------------------

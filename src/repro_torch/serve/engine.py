@@ -10,8 +10,15 @@ token); the next wave starts when every slot of this one is done.  Greedy
 distribution as the reference's ``jax.random.categorical``, not the same
 draws.
 
+It feeds the model ``{"tokens": ...}`` only, as the reference's engine
+does, so it serves the dense, MoE, hybrid and RWKV families; their caches
+(KV, Mamba and RWKV states) are the model's own.  Whisper and the VLM run
+through ``Model.prefill_fn`` and ``Model.decode_fn`` directly.
+
 Compute is bf16, as in the reference; the parameters are cast once, at
-construction, onto the engine's device (the card unless the CPU is asked).
+construction, onto the engine's device (the card unless the CPU is asked),
+leaves whose spec fixes their dtype (f32 routers and SSM decay logs) as
+they are.
 Each wave's timings land in ``ServeEngine.waves``, read at the points where
 the host already waits for the device (the sampled tokens), so recording
 them adds no synchronisation.

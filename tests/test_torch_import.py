@@ -2,8 +2,9 @@
 package (the subprocess below imports every module of the port's search,
 build, data, serving and telemetry paths, builds a DiskANN index and
 searches it on the ``torch`` and ``numpy`` backends, serves one request
-through ``AnnServer``, and runs a fleet build with a kill through
-``repro_torch.fleet`` and its scheduler and cost model), and its entry
+through ``AnnServer``, runs a fleet build with a kill through
+``repro_torch.fleet`` and its scheduler and cost model, and runs every
+model family's prefill and decode), and its entry
 points run on the card unless the CPU
 is asked for — without CUDA they raise instead of carrying on quietly on
 the CPU."""
@@ -105,6 +106,23 @@ fl = build_scalegann_fleet(ds.data, cfg, n_workers=2, device="cpu",
                            injector=PreemptionInjector(kill_shard_at={0: 1}),
                            runtime_model=RuntimeModel(1e-4))
 assert fl.report.n_preemptions == 1 and fl.report.cost.total > 0
+import repro_torch.models.moe, repro_torch.models.rwkv6
+import repro_torch.models.ssm
+from repro_torch.configs.base import ARCH_IDS
+
+for arch in ARCH_IDS:
+    cfg = smoke_config(get_arch(arch))
+    lm = build_model(cfg)
+    batch = {"tokens": torch.ones(2, 16, dtype=torch.long)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros(2, cfg.n_audio_frames, cfg.d_model)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(2, cfg.n_patches, 3200)
+    params = lm.init(seed=0, device="cpu", dtype=torch.bfloat16)
+    logits, cache = lm.prefill_fn(params, batch, 32)
+    logits, cache = lm.decode_fn(params, cache, logits.argmax(-1),
+                                 16 + cfg.n_patches)
+    assert logits.shape == (2, 256) and bool(torch.isfinite(logits.float()).all())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -125,7 +143,9 @@ def test_package_sources_never_name_jax_or_reference():
     names = {p.relative_to(SRC / "repro_torch").as_posix() for p in paths}
     assert {"fleet/__init__.py", "fleet/checkpoint.py", "fleet/executor.py",
             "fleet/injector.py", "core/scheduler.py",
-            "core/cost_model.py"} <= names
+            "core/cost_model.py", "models/moe.py", "models/ssm.py",
+            "models/rwkv6.py", "configs/kimi_k2_1t_a32b.py",
+            "configs/whisper_base.py"} <= names
     for path in paths:
         for line in path.read_text().splitlines():
             stripped = line.strip()
@@ -196,3 +216,9 @@ def test_lm_entry_points_raise_without_cuda(monkeypatch):
         lm.init(seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_cache_fn(1, 8)
+    for arch in ("jamba_v0_1_52b", "rwkv6_1_6b", "whisper_base"):
+        other = build_model(smoke_config(get_arch(arch)))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            other.init(seed=0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            other.init_cache_fn(1, 8)

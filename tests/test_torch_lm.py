@@ -4,7 +4,8 @@ the same weights (carried over by ``params_from_jax``).
 
 * K5/K6 plain versions against the Pallas kernels in interpret mode and
   against ``repro.kernels.ref``, at the reference suite's shapes and
-  tolerance (``rtol=atol=2e-3``, ``tests/test_kernels.py``).  Both sides
+  tolerance (``rtol=atol=2e-3``, ``tests/test_kernels.py``), and at head
+  dim 96 and GQA group 7.  Both sides
   compute in f32; the slack covers the online softmax's summation order.
 * ``rms_norm``, ``apply_rope``, ``swiglu`` in f32 to 1e-5 (f32 rounding of
   the same operations in another order).
@@ -103,6 +104,26 @@ def test_flash_attention_plain_matches_reference(h, hkv, causal):
                                rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_head_dim_96_gqa_7(causal):
+    """phi3-mini's head dim (96, the default scale not a power of two) at
+    arctic's GQA group of 7 (14 heads over 2 KV heads)."""
+    rng = np.random.default_rng(16)
+    b, s, dh = 2, 200, 96
+    q, k, v = (_rand(rng, (b, n, s, dh)) for n in (14, 2, 2))
+    got = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal)
+    pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    interpret=True)
+    want = jref.mha_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-3, atol=2e-3)
+
+
 @pytest.mark.parametrize("s,t", [(77, 77), (50, 130)])
 def test_flash_attention_plain_ragged_and_offset(s, t):
     """Lengths off any tile, and T > S (query i attends keys <= i + T - S)."""
@@ -124,6 +145,28 @@ def test_flash_decode_plain_matches_reference(lens):
     q, k, v = _rand(rng, (b, h, dh)), _rand(rng, (b, hkv, t, dh)), \
         _rand(rng, (b, hkv, t, dh))
     cl = np.asarray(lens, np.int32)
+    got = tops.flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), torch.from_numpy(cl))
+    pallas = flash_decode_pallas(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), jnp.asarray(cl),
+                                 interpret=True)
+    want = jref.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), jnp.asarray(cl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dh,h", [(96, 8), (128, 14)])
+def test_flash_decode_plain_head_dim_96_and_gqa_7(dh, h):
+    """Head dim 96 (phi3-mini) and a GQA group of 7 (arctic, 14 heads
+    over 2 KV heads) against the Pallas kernel and the reference."""
+    rng = np.random.default_rng(17)
+    b, hkv, t = 2, 2, 512
+    q, k, v = _rand(rng, (b, h, dh)), _rand(rng, (b, hkv, t, dh)), \
+        _rand(rng, (b, hkv, t, dh))
+    cl = np.asarray([512, 131], np.int32)
     got = tops.flash_decode(torch.from_numpy(q), torch.from_numpy(k),
                             torch.from_numpy(v), torch.from_numpy(cl))
     pallas = flash_decode_pallas(jnp.asarray(q), jnp.asarray(k),
@@ -253,12 +296,6 @@ def test_config_matches_reference(smoke):
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert cfg.resolved_head_dim == jcfg.resolved_head_dim
-
-
-def test_other_families_raise():
-    cfg = dataclasses.replace(get_arch("tinyllama_1_1b"), family="moe")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        model.build_model(cfg)
 
 
 # ---------------------------------------------------------------------------
