@@ -87,8 +87,10 @@
    QPS, fused and torch agreeing on 99.9% of ids.  K1, K3, K4 must have
    launched.  Then ``torch`` on the card against the CPU (2000 queries;
    uint8 exact, f32 99.9% of ids), one Vamana round's prune and reverse
-   edges on the card against the CPU on integer points (equal), and K3 at
-   the build shape against its plain version (ids and counters on 99.9%).
+   edges on the card (prune chunks replayed from CUDA graphs, the overflow
+   re-prune at bucketed shapes) against the CPU's eager loop on integer
+   points (equal), and K3 at the build shape against its plain version
+   (ids and counters on 99.9%).
 8. Fleet phase, counters zeroed just before and read just after:
    ``make_clustered(fleet_n, 128, n_queries=2000, seed=2)`` (ground truth
    from K4), ``calibrate_runtime`` on real ``fused`` builds at 256, 512
@@ -155,7 +157,35 @@
 13. K5 and K6 against their plain versions (bf16, 8e-3) at the phase's
    new shapes: head dim 96 (phi3-mini), GQA group 7 (arctic), Whisper's
    non-causal encoder (S = T = 1,500) and cross-attention (S = 64, T =
-   1,500), timed beside SDPA with their bounds.
+   1,500), timed beside SDPA with their bounds.  At every K5 shape timed
+   (here and in step 10) K5 also runs with its log-sum-exp output: the
+   lse against the plain version's ``torch.logsumexp`` (f32, 1e-4), the
+   output equal to the launch without it, both timed.
+14. Retrieval-attention phase (after step 9's breakdown, on its engine),
+   counters zeroed just before and read just after: one 1,042-token
+   TinyLlama prompt prefilled and decoded a step; the last layer's K6
+   call gives 32 query heads' q and 4 KV heads x 1,043 keys and values;
+   ``build_key_indexes`` on the card (K1, K4), one
+   ``retrieval_decode_attention`` step on ``fused`` (K3 at Q = 1) at the
+   reference's defaults, held to K6's full attention.  Prints one
+   ``retrieval {...}`` line (build s, decode ms, errors, distance counts
+   against the exhaustive 32 x 1,043).  Gates: finite outputs; exact
+   selection of every key equal to full attention to 1e-4 x max; the
+   ``fused`` ids on the card equal to the CPU ``torch`` backend's (a
+   differing id must be a near-tie); K1, K3 and K4 launched.
+15. Training phase (last), counters zeroed just before the timed steps and
+   read just after: the TinyLlama and kimi smoke configs' f32 gradients
+   on the card against the CPU's (1e-4 x max|g| a leaf); TinyLlama-1.1B
+   at full width, bf16 trainable parameters, ``remat="full"``, AdamW,
+   ``TrainConfig(warmup_steps=2)`` (a ``CUT`` line) over
+   ``TokenPipeline(32000, 1024, 8, seed=0)`` for 10 steps.  One batch's
+   gradients through K5 + the FA2 backward against the plain attention's
+   (5e-2 x max|g| a leaf, bf16) with the forward / backward split; then
+   one ``train {...}`` line (losses, grad norms, step ms, tokens/s, a
+   profiled step's busy ms and idle share, peak GB, K5 launches, the
+   backward's share).  Gates: finite losses falling from the first step
+   to the last, finite grad norms, K5 launched 22 times a forward and 22
+   a recompute, a checkpoint saved on the card restoring equal.
 
 Prints one ``{"kernels": [...]}`` line, then the card's line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero on any
@@ -1934,7 +1964,9 @@ def check_vamana_round(torch, res):
     shard's size, from a random regular graph (every row full, so the
     reverse edges overflow as in a pass's first rounds): K3 gives the pool
     on the card, then the prune and the reverse-edge update run on the
-    card and on the CPU from the same pool and graph.  Every distance is
+    card (each prune chunk replaying its shape's CUDA graph, the overflow
+    re-prune at bucketed shapes) and on the CPU (the eager loop with its
+    host early exit) from the same pool and graph.  Every distance is
     an exact integer, so the kept ids, the graph and the distance counter
     must be equal.  The card's round is timed by phase, then profiled:
     kernels launched and device busy time against its wall time."""
@@ -1953,6 +1985,8 @@ def check_vamana_round(torch, res):
     graph0 = vamana._random_regular_init(n, cfg.degree, rng)
     batch = rng.permutation(n)[:256]
 
+    graphs = vamana.PruneGraphs()  # the card's rounds replay CUDA graphs
+
     def one_round(dev, pool_in=None):
         x = torch.from_numpy(ints).to(dev)
         g = torch.from_numpy(graph0.astype(np.int32)).to(dev)
@@ -1965,11 +1999,12 @@ def check_vamana_round(torch, res):
             ids, dists = (t.to(dev) for t in pool_in)
         t1 = time.perf_counter()
         kept = vamana.robust_prune_batch(b, ids, dists, x, 1.2, cfg.degree,
-                                         counter)
+                                         counter, graphs=graphs)
         g[b] = kept.to(g.dtype)
         int(counter[0])
         t2 = time.perf_counter()
-        vamana._apply_reverse_edges(b, kept, g, x, 1.2, cfg.degree, counter)
+        vamana._apply_reverse_edges(b, kept, g, x, 1.2, cfg.degree, counter,
+                                    graphs)
         count = int(counter[0])
         t3 = time.perf_counter()
         return (ids, dists), kept.cpu(), g.cpu(), count, (t1 - t0, t2 - t1,
@@ -1980,7 +2015,8 @@ def check_vamana_round(torch, res):
     _, kh, gh, ch, (_, hp, hr) = one_round("cpu", pool_c)
     same = (torch.equal(kc, kh), torch.equal(gc, gh), cc == ch)
     log(f"vamana round on integer points (n={n}, 256 points, pool {pool}): "
-        f"card vs CPU keep/graph/counter equal={same} counter={cc}; card "
+        f"card (prune chunks from {len(graphs)} CUDA graphs) vs CPU (eager, "
+        f"host early exit) keep/graph/counter equal={same} counter={cc}; card "
         f"beam {1e3 * tb:.2f} ms, prune {1e3 * tp:.2f} ms, reverse edges "
         f"{1e3 * tr:.2f} ms; CPU prune {1e3 * hp:.1f} ms, reverse edges "
         f"{1e3 * hr:.1f} ms")
@@ -2486,6 +2522,7 @@ def check_k5(torch, rows, waves):
             f"kv[{b},{hkv},{s},{dh}] max_abs_err={err:.3e} "
             f"bit_equal_share={bit_equal:.6f} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib:.4f}")
+        check_lse(torch, qq, kk, vv, True, f"causal q[{b},{h},{s},{dh}]", ms)
         if dtype == torch.bfloat16:
             one = flash_attention_single_p_cuda(qq, kk, vv, causal=True)
             one_err = float((one.float() - want.float()).abs().max())
@@ -2509,6 +2546,33 @@ def check_k5(torch, rows, waves):
             rows["flash_attention"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=lib)
+
+
+def check_lse(torch, q, k, v, causal: bool, what: str, ms: float):
+    """K5 with its log-sum-exp output against the plain version's
+    ``torch.logsumexp`` (f32, 1e-4: the kernel's exp2 is ~2^-22 relative
+    and its sums run in another order), the output unchanged by it, and
+    its time beside the launch without it (``ms``)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_lse_cuda,
+        flash_attention_lse_plain)
+
+    out, lse = flash_attention_lse_cuda(q, k, v, causal=causal)
+    want_out, want_lse = flash_attention_lse_plain(q, k, v, causal=causal)
+    err = allclose_err(torch, lse, want_lse, 1e-4)
+    same = bool(torch.equal(out, flash_attention_cuda(q, k, v,
+                                                      causal=causal)))
+    need(same, f"K5's output with lse differs from without ({what})")
+    allclose_err(torch, out, want_out, TOL[str(q.dtype)[6:]])
+    lse_ms = events_ms(torch, lambda: flash_attention_lse_cuda(
+        q, k, v, causal=causal), reps=20)
+    ms2 = events_ms(torch, lambda: flash_attention_cuda(q, k, v,
+                                                        causal=causal),
+                    reps=20)
+    log(f"K5 {str(q.dtype)[6:]} {what} with lse: lse max_abs_err={err:.3e} "
+        f"(f32, against torch.logsumexp), output equal to the launch "
+        f"without; ms with lse={lse_ms:.4f}, without={ms:.4f} / {ms2:.4f}")
+    return lse_ms
 
 
 def check_k6(torch, rows, longest: int):
@@ -2962,6 +3026,7 @@ def check_family_kernels(torch):
             f"kv[{b},{hkv},{t},{dh}] max_abs_err={err:.3e} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib:.4f} bound_ms={bnd:.5f} "
             f"({by})")
+        check_lse(torch, q, k, v, causal, name, ms)
         del q, k, v, got, want
     for name, b, h, hkv, t, dh, fill in (
             ("phi3-mini Dh 96", 8, 32, 32, longest + 1, 96, longest),
@@ -3057,6 +3122,315 @@ def check_small_lm_against_cpu(torch):
             f"{cfg.resolved_head_dim}) card vs CPU: " + "; ".join(report))
 
 
+RETRIEVAL_PROMPT = 1042  # one TinyLlama row: 1,042 prompt keys + the next
+
+
+def retrieval_path(torch, engine):
+    """ANN-retrieval attention over one row of the LM path's KV cache
+    (step 14), counters zeroed just before and read just after: a
+    1,042-token prompt is prefilled and decoded one step; the last layer's
+    K6 call of that step gives the row's 32 query heads' q and its 4 KV
+    heads' 1,043 keys and values.  The keys are indexed on the card
+    (``build_key_indexes``: K1 in k-means and the partition, K4 for the
+    CAGRA kNN graphs), one ``retrieval_decode_attention`` step runs with
+    ``backend="fused"`` (K3 at Q = 1) at the reference's defaults, and the
+    output is held to K6's full attention on the same row.  Gates: finite
+    outputs; with ``exact_search`` and top_t = T the output equals full
+    attention to 1e-4 x max; the ``fused`` ids on the card equal the
+    port's ``torch`` backend's on the CPU over the same index (the parity
+    contract: a differing id must be a near-tie).  Returns the phase's
+    launches of K1-K4."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, ops, reset_counts
+    from repro_torch.kernels.flash_attention import flash_decode_cuda
+    from repro_torch.search import search
+    from repro_torch.serve import (build_key_indexes,
+                                   full_decode_attention_ref,
+                                   retrieval_decode_attention)
+
+    cfg = engine.model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (1, RETRIEVAL_PROMPT),
+                         device="cuda", generator=gen)
+    calls = []
+    decode = ops.flash_decode
+
+    def captured(q, k_cache, v_cache, cache_len, **kw):
+        calls.append((q, k_cache, v_cache, cache_len))
+        return decode(q, k_cache, v_cache, cache_len, **kw)
+
+    with torch.inference_mode():
+        logits, cache = engine._prefill(toks)
+        ops.flash_decode = captured
+        try:
+            engine._decode(cache, logits[:, :cfg.vocab_size].argmax(-1),
+                           RETRIEVAL_PROMPT)
+        finally:
+            ops.flash_decode = decode
+        q, kc, vc, lens = calls[-1]  # the last layer's call
+        t = int(lens[0])
+        k_row = kc[:, :, :t].float().cpu().numpy()
+        v_row = vc[:, :, :t].float().cpu().numpy()
+        q_row = q.float().cpu().numpy()
+        k6 = flash_decode_cuda(q, kc, vc, lens).float().cpu().numpy()
+    need(len(calls) == cfg.n_layers, f"{len(calls)} K6 calls in one decode "
+         "step, not one a layer")
+    h, hkv = q_row.shape[1], k_row.shape[1]
+    log(f"retrieval inputs: TinyLlama layer {cfg.n_layers - 1}'s K6 call, q "
+        f"{list(q_row.shape)}, keys/values {list(k_row.shape)} (a cache row "
+        f"of {t} positions)")
+    dense = full_decode_attention_ref(q_row, k_row, v_row)
+    reset_counts()
+    t0 = time.perf_counter()
+    idx = build_key_indexes(k_row, v_row)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    retrieval_decode_attention(q_row, idx, backend="fused")  # warm-up
+    t0 = time.perf_counter()
+    out, st = retrieval_decode_attention(q_row, idx, backend="fused")
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: LAUNCHES[name] for name in ANN_KERNELS}
+    scale = float(np.abs(dense).max())
+    err_k6 = float(np.abs(out - k6).max()) / scale
+    err_dense = float(np.abs(out - dense).max()) / scale
+    k6_err = float(np.abs(k6 - dense).max()) / scale
+    exact, est = retrieval_decode_attention(q_row, idx, top_t=t,
+                                            exact_search=True)
+    exact_err = float(np.abs(exact - dense).max()) / scale
+    # the parity contract: fused on the card against torch on the CPU
+    differ = not_tie = 0
+    for hi in range(h):
+        ki = idx[0][hi // (h // hkv)]
+        kw = dict(width=64, n_entries=8)
+        a, _ = search(ki.topology(), q_row[0, hi][None], 64,
+                      backend="fused", **kw)
+        b, _ = search(ki.topology(), q_row[0, hi][None], 64,
+                      backend="torch", device="cpu", **kw)
+        differ += int((a != b).sum())
+        not_tie += near_ties(torch, torch.from_numpy(q_row[0, hi][None]),
+                             torch.from_numpy(ki.keys), torch.from_numpy(a),
+                             torch.from_numpy(b), 1e-5, metric="ip")
+    row = {"keys": t, "kv_heads": hkv, "query_heads": h,
+           "build_s": build_s, "decode_ms": decode_ms,
+           "rel_err_vs_k6": err_k6, "rel_err_vs_f32_dense": err_dense,
+           "k6_rel_err_vs_f32_dense": k6_err,
+           "exact_top_t_T_rel_err": exact_err,
+           "n_distance_computations": st["n_distance_computations"],
+           "exhaustive_distance_computations": h * t,
+           "fused_vs_cpu_torch_ids_differing": differ,
+           "differing_beyond_near_tie": not_tie, "launches": launches}
+    log("retrieval " + json.dumps(row))
+    need(bool(np.isfinite(out).all() and np.isfinite(exact).all()),
+         "retrieval attention gave non-finite outputs")
+    need(exact_err <= 1e-4, f"exact retrieval over every key differs from "
+         f"full attention by {exact_err:.3e} x max")
+    need(est["n_distance_computations"] == h * t,
+         "exact retrieval's distance count")
+    need(not_tie == 0, f"{not_tie} fused ids on the card differ from the "
+         "CPU torch backend's beyond a near-tie")
+    for name in ("pairwise_distance", "fused_beam", "knn"):
+        need(launches[name] > 0, f"kernel {name} was not launched in the "
+             "retrieval phase")
+    return launches
+
+
+def _grads(torch, lm, params, batch):
+    """(loss, gradients, forward s, backward s) of one batch, each part
+    ended by a synchronize."""
+    from repro_torch.common import params as par
+    from repro_torch.models.model import param_tree
+
+    leaves = par.leaves(param_tree(params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = lm.loss_fn(params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads, t1 - t0, time.perf_counter() - t1
+
+
+def _worst_leaf(got, want, paths):
+    """(the largest max|got - want| / max|want| over the leaves, its
+    path)."""
+    worst = (0.0, "")
+    for g, w, p in zip(got, want, paths):
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, (err, p))
+    return worst
+
+
+TRAIN_STEPS = 10
+TRAIN_BF16_GRAD_TOL = 5e-2  # x max|g| per leaf; train_path says why
+
+
+def train_path(torch):
+    """Training on the card (step 15), counters zeroed just before the
+    timed steps and read just after: TinyLlama-1.1B at full width with its
+    bf16 parameters trainable, ``remat="full"``, AdamW and
+    ``TrainConfig(warmup_steps=2)`` over ``TokenPipeline(32000, 1024, 8,
+    seed=0)`` batches for 10 steps.  Gates: a finite loss every step and
+    the last below the first; finite grad norms; K5 launched 22 times in a
+    forward and 22 in its recompute, 44 a step; one batch's gradients
+    through K5 + the FA2 backward equal to those through the plain
+    attention (autograd through ``ref.mha_attention``) on the card, per
+    leaf to 5e-2 x max|g| (bf16 gradients: each leaf rounds to 2^-8
+    relative, and the two attentions round their bf16 outputs and
+    gradients at different points through 22 layers); the TinyLlama and
+    kimi smoke configs' f32 gradients on the card equal to the CPU's to
+    1e-4 x max|g| per leaf; a checkpoint saved on the card restoring
+    equal, leaf for leaf.  Returns K5's launches in the timed steps."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.common import params as par
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import LAUNCHES, ref, reset_counts
+    from repro_torch.models import attention
+    from repro_torch.models.model import (build_model, loss_fn,
+                                          param_tree, params_module,
+                                          stacked_tree)
+    from repro_torch.train import (TrainConfig, adamw, checkpoint,
+                                   init_train_state, make_train_step)
+
+    t_phase = time.perf_counter()
+    # f32 gradients of the small configs: the card against the CPU
+    for arch in ("tinyllama_1_1b", "kimi_k2_1t_a32b"):
+        cfg = smoke_config(get_arch(arch))
+        lm = build_model(cfg)
+        cpu = lm.init(seed=0, device="cpu", requires_grad=True)
+        tree = stacked_tree(cfg, param_tree(cpu))
+        card = params_module(cfg, par.tree_map(
+            lambda x: x.detach().to("cuda"), tree), requires_grad=True)
+        rng = np.random.default_rng(1)
+        toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+        got, want = [], []
+        for params, out in ((card, got), (cpu, want)):
+            loss, _ = loss_fn(cfg, params, batch, dtype=torch.float32)
+            leaves = par.leaves(param_tree(params))
+            out.extend(g.cpu() for g in torch.autograd.grad(loss, leaves))
+        paths = [p for p, _ in par.leaves_with_paths(param_tree(cpu))]
+        err, path = _worst_leaf(got, want, paths)
+        log(f"train small {arch} f32 gradients card vs CPU: worst leaf "
+            f"{path} max|dg|/max|g|={err:.3e} ({len(paths)} leaves)")
+        need(err <= 1e-4, f"{arch}'s f32 gradients on the card differ from "
+             f"the CPU's: {path} {err:.3e} x max|g|")
+        del cpu, card
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_arch("tinyllama_1_1b")
+    cfg = dataclasses.replace(base, remat="full")
+    lm = build_model(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(seed=0, dtype=torch.bfloat16, requires_grad=True)
+    torch.cuda.synchronize()
+    tcfg = TrainConfig(warmup_steps=2)
+    log(f"CUT: training warmup_steps={tcfg.warmup_steps} instead of "
+        f"{TrainConfig().warmup_steps} (a {TRAIN_STEPS}-step run); "
+        f"{cfg.name} at full width, {cfg.n_layers} layers, bf16 parameters, "
+        f"remat={cfg.remat} (the config's {base.remat}), AdamW; init "
+        f"{time.perf_counter() - t0:.3f} s")
+    pipe = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, 1024, 8,
+                                             seed=0))
+    first = pipe.next_batch()
+
+    # one batch: K5 + FA2 backward against the plain attention, and the
+    # forward / backward split with K5's launches in each
+    _grads(torch, lm, params, first)  # warm-up (cuBLAS, allocator)
+    reset_counts()
+    loss0, fa2, t_fwd, t_bwd = _grads(torch, lm, params, first)
+    k5 = LAUNCHES["flash_attention"]
+    need(k5 == 2 * cfg.n_layers, f"K5 launched {k5} times in one forward + "
+         f"backward, not {cfg.n_layers} + {cfg.n_layers} (remat)")
+    attend = attention._attend
+    attention._attend = lambda q, k, v, *, causal: ref.mha_attention(
+        q, k, v, causal=causal)
+    try:
+        loss_p, plain, *_ = _grads(torch, lm, params, first)
+    finally:
+        attention._attend = attend
+    paths = [p for p, _ in par.leaves_with_paths(param_tree(params))]
+    err, path = _worst_leaf(fa2, plain, paths)
+    log(f"train one batch: loss {loss0:.6f} (plain attention {loss_p:.6f}); "
+        f"K5 + FA2 backward against plain attention, bf16 gradients: worst "
+        f"leaf {path} max|dg|/max|g|={err:.3e}; forward {t_fwd * 1e3:.1f} "
+        f"ms (K5 {cfg.n_layers}), backward with recompute {t_bwd * 1e3:.1f}"
+        f" ms (K5 {k5 - cfg.n_layers}), backward share "
+        f"{t_bwd / (t_fwd + t_bwd):.3f}")
+    need(err <= TRAIN_BF16_GRAD_TOL, f"gradients through K5 + FA2 differ "
+         f"from the plain attention's: {path} {err:.3e} x max|g|")
+    del fa2, plain
+
+    opt = adamw()
+    state = init_train_state(lm, opt, tcfg=tcfg, params=params)
+    step = make_train_step(lm, opt, tcfg)
+    pipe.seek(0)
+    batches = [pipe.next_batch() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, norms, walls = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+    launches = LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = walls[2:]
+    step_ms = 1e3 * sum(warm) / len(warm)
+    wall, busy, ops, top = profiled_ms(
+        torch, lambda i: step(state, batches[i]), 1)
+    row = {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+           "step_ms": step_ms, "step_ms_each": [1e3 * w for w in walls],
+           "tokens_per_s": 8 * 1024 / (step_ms / 1e3),
+           "profiled_step_wall_ms": wall, "profiled_busy_ms": busy,
+           "profiled_idle_share": 1 - busy / wall, "device_ops": ops,
+           "peak_gb": peak, "k5_launches": launches,
+           "backward_share": t_bwd / (t_fwd + t_bwd)}
+    log("train " + json.dumps(row))
+    log(f"train profiled step top kernels ms: {top}")
+    need(all(np.isfinite(losses)) and losses[-1] < losses[0],
+         f"training losses {losses}")
+    need(all(np.isfinite(norms)), f"grad norms {norms}")
+    need(launches == TRAIN_STEPS * 2 * cfg.n_layers, f"K5 launched "
+         f"{launches} times in {TRAIN_STEPS} steps, not "
+         f"{TRAIN_STEPS * 2 * cfg.n_layers}")
+
+    # a checkpoint on the card restores equal, leaf for leaf
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    with torch.no_grad():
+        tree = {"params": stacked_tree(cfg, param_tree(state.params)),
+                "count": state.opt_state["count"], "step": state.step}
+    t0 = time.perf_counter()
+    checkpoint.save(str(root), int(state.step), tree,
+                    metadata={"arch": cfg.name})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, back, manifest = checkpoint.restore_latest(str(root), tree)
+    load_s = time.perf_counter() - t0
+    pairs = list(zip(par.leaves(tree), par.leaves(back)))
+    equal = all(a.dtype == b.dtype and a.device == b.device
+                and torch.equal(a, b) for a, b in pairs)
+    n_bytes = sum(a.numel() * a.element_size() for a, _ in pairs)
+    log(f"train checkpoint: {len(pairs)} leaves, {n_bytes} bytes, save "
+        f"{save_s:.3f} s, restore {load_s:.3f} s, equal={equal}")
+    shutil.rmtree(root, ignore_errors=True)
+    need(equal and manifest["step"] == TRAIN_STEPS,
+         "the checkpoint restored unequal")
+    log(f"train phase body {time.perf_counter() - t_phase:.3f} s")
+    return {"flash_attention": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -3148,6 +3522,10 @@ def main(argv=None) -> int:
         rows[name]["launches"] = count
     lm_breakdown(torch, engine)
     waves = [(w.batch, w.prompt_len) for w in engine.waves]
+    t1 = time.perf_counter()
+    for name, count in retrieval_path(torch, engine).items():
+        rows[name]["launches"] += count
+    log(f"retrieval attention phase {time.perf_counter() - t1:.3f} s")
     del engine
     check_k5(torch, rows, waves)
     check_k6(torch, rows, longest)
@@ -3159,6 +3537,10 @@ def main(argv=None) -> int:
         rows[name]["launches"] += count
     check_family_kernels(torch)
     log(f"LM families phase {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    for name, count in train_path(torch).items():
+        rows[name]["launches"] += count
+    log(f"training phase {time.perf_counter() - t0:.3f} s")
     log(f"total {time.perf_counter() - t_start:.3f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -73,6 +73,13 @@ def leaves(tree: Tree) -> list:
     return out
 
 
+def unflatten(tree: Tree, leaves: list) -> Tree:
+    """A tree shaped like ``tree`` holding ``leaves`` in :func:`leaves`
+    order (each new leaf may itself be any object)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_map_with_paths(fn: Callable, tree: Tree, prefix: str = "") -> Tree:
     """Apply ``fn(dot.path, leaf)`` to the leaves of nested dicts and lists,
     with the paths of :func:`leaves_with_paths`."""

@@ -20,7 +20,12 @@ Two implementations share that schedule:
     destination (:func:`_apply_reverse_edges`), all as torch ops on the
     build's ``store`` and ``graph`` tensors.  The beam reads the live graph
     every round (the backends cache nothing for device tensors).  The
-    distance counter stays on the device and is read once a round.
+    distance counter stays on the device and is read once a round.  A
+    live index's inserts replay the prune's chunks from CUDA graphs
+    (:class:`PruneGraphs`): a chunk is ~600 small launches whose host
+    calls, not their device time, set a round's pace beside the server's
+    thread.  An offline build runs them eagerly: alone, the graphs' first
+    captures and padded rows cost more than the launches they save.
   * :func:`build_shard_index_vamana_sequential` is the paper-faithful
     one-point-at-a-time host numpy build, kept as the seed-loop baseline.
 
@@ -32,9 +37,11 @@ and distance count.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 import time
 from typing import Callable, Optional
 
@@ -48,9 +55,11 @@ from repro_torch.telemetry import current_tracer, record_stage, stage_active
 
 # working memory one prune chunk may take ([b, C, C] distances, [b, C, D]
 # candidate vectors): a round's overflow re-prune (thousands of rows) fits
-# one chunk, whose 64 steps cost launches, not bytes; rows are independent,
-# so chunking changes nothing
-PRUNE_CHUNK_BYTES = 1 << 30
+# one chunk, and consolidation's re-prune of ~125k rows at 1M takes few
+# slices; a slice's steps cost launches, not bytes, whatever its rows, so
+# the chunks are large (4 GB of the card's 80); rows are independent, so
+# chunking changes nothing
+PRUNE_CHUNK_BYTES = 4 << 30
 
 
 @dataclasses.dataclass
@@ -132,11 +141,32 @@ def _rows_per_chunk(c: int, d: int) -> int:
     return max(1, PRUNE_CHUNK_BYTES // (4 * c * (c + d + 8)))
 
 
-def _prune_rows(p_ids, cand, cand_d, vecs, alpha: float, R: int):
-    """One chunk of :func:`robust_prune_batch`: ``(keep [b, R], count)``
-    with the count a device scalar.  Each step is ten small ops, none of
-    them advanced indexing, so the loop costs what its launches cost."""
-    nb, c = cand.shape
+PRUNE_SEGMENT = 16  # prune steps between the host's reads of `alive`
+# one capture at a time in the process: two threads capturing at once
+# (two fleet workers did, each on its own stream) invalidated a capture
+# on the H100 (cudaErrorStreamCaptureInvalidated); launches other threads
+# make meanwhile on their own streams are fine (thread_local mode)
+_CAPTURE_LOCK = threading.Lock()
+
+
+@dataclasses.dataclass
+class _PruneState:
+    """What a prune chunk's steps read and update: sorted distances and
+    ids, the alive mask (updated in place), α·d(v_i, v_j), and the outputs
+    ``keep`` [b, R] and ``count`` (written in place)."""
+
+    sd: torch.Tensor
+    sid: torch.Tensor
+    alive: torch.Tensor
+    apair: torch.Tensor
+    keep: torch.Tensor
+    count: torch.Tensor
+
+
+def _prune_setup(p_ids, cand, cand_d, vecs, alpha: float,
+                 keep: torch.Tensor, count: torch.Tensor) -> _PruneState:
+    """A chunk's sort and pair tile; resets ``keep`` to -1 and ``count``
+    to 0."""
     invalid = (cand < 0) | (cand == p_ids[:, None]) | ~torch.isfinite(cand_d)
     d_key = torch.where(invalid, torch.inf, cand_d)
     sd, order = torch.sort(d_key, dim=1, stable=True)
@@ -148,23 +178,143 @@ def _prune_rows(p_ids, cand, cand_d, vecs, alpha: float, R: int):
     nn_ = (vecs * vecs).sum(dim=2)
     pair = (nn_[:, :, None] + nn_[:, None, :]
             - 2.0 * torch.bmm(vecs, vecs.transpose(1, 2))).clamp_min(0.0)
-    apair = alpha * pair
-    cols, counts = [], []
-    for t in range(R):
-        if t % 16 == 0 and not bool(alive.any()):
-            break  # a host read every 16 steps, not every step
-        i = alive.to(torch.uint8).argmax(dim=1, keepdim=True)  # first alive
-        active = alive.gather(1, i)  # rows with anything left to keep
-        cols.append(torch.where(active, sid.gather(1, i), -1))
-        alive.scatter_(1, i, False)
-        counts.append(alive.sum())  # masked lanes are not counted
+    keep.fill_(-1)
+    count.zero_()
+    return _PruneState(sd, sid, alive, alpha * pair, keep, count)
+
+
+def _prune_segment(st: _PruneState, t0: int, t1: int) -> None:
+    """Steps ``t0 .. t1 - 1``: each keeps every row's first alive
+    candidate in column t and kills the alive v it occludes.  Each step is
+    a few small ops, none of them advanced indexing."""
+    nb, c = st.sid.shape
+    for t in range(t0, t1):
+        i = st.alive.to(torch.uint8).argmax(dim=1, keepdim=True)
+        active = st.alive.gather(1, i)  # rows with anything left to keep
+        st.keep[:, t:t + 1] = torch.where(active, st.sid.gather(1, i), -1)
+        st.alive.scatter_(1, i, False)
+        st.count += st.alive.sum()  # masked lanes are not counted
         # a row with nothing alive stays so: no `active` mask is needed
-        alive &= apair.gather(1, i[:, :, None].expand(nb, 1, c))[:, 0] > sd
-    keep = torch.full((nb, R), -1, dtype=torch.long, device=cand.device)
-    if cols:
-        keep[:, :len(cols)] = torch.cat(cols, dim=1)
-    count = torch.stack(counts).sum() if counts else keep.new_zeros(())
+        st.alive &= (st.apair.gather(1, i[:, :, None].expand(nb, 1, c))[:, 0]
+                     > st.sd)
+
+
+def _prune_rows(p_ids, cand, cand_d, vecs, alpha: float, R: int):
+    """One chunk of :func:`robust_prune_batch`: ``(keep [b, R], count)``
+    with the count a device scalar.  Segments of :data:`PRUNE_SEGMENT`
+    steps, the host reading before each whether any row has a candidate
+    left; the loop costs what its launches cost."""
+    keep = torch.full((len(cand), R), -1, dtype=torch.long,
+                      device=cand.device)
+    count = keep.new_zeros(())
+    st = _prune_setup(p_ids, cand, cand_d, vecs, alpha, keep, count)
+    for t0 in range(0, R, PRUNE_SEGMENT):
+        if not bool(st.alive.any()):
+            break
+        _prune_segment(st, t0, min(t0 + PRUNE_SEGMENT, R))
     return keep, count
+
+
+class _CapturedPrune:
+    """:func:`_prune_rows` at one ``(rows, C, D, R, alpha)`` as CUDA graphs:
+    the setup and each segment of steps, replayed in :func:`_prune_rows`'s
+    order with its host reads between the segments, so a chunk's ~600
+    launches become a few replays and its results are the eager loop's.
+    Static input buffers feed it; the outputs are static too.  Captured on
+    a side stream after one warm-up run there (cuBLAS and the sort's
+    scratch exist before the capture), in ``thread_local`` mode, so the
+    launches another thread (the server's) makes meanwhile on its own
+    stream are neither part of, nor refused by, the capture."""
+
+    def __init__(self, nb: int, c: int, d: int, alpha: float, R: int,
+                 dev: torch.device, pool=None):
+        self.p_ids = torch.zeros(nb, dtype=torch.long, device=dev)
+        self.cand = torch.full((nb, c), -1, dtype=torch.long, device=dev)
+        self.cand_d = torch.full((nb, c), torch.inf, device=dev)
+        self.vecs = torch.zeros((nb, c, d), device=dev)
+        self.keep = torch.full((nb, R), -1, dtype=torch.long, device=dev)
+        self.count = torch.zeros((), dtype=torch.long, device=dev)
+        spans = [(t0, min(t0 + PRUNE_SEGMENT, R))
+                 for t0 in range(0, R, PRUNE_SEGMENT)]
+
+        def setup():
+            return _prune_setup(self.p_ids, self.cand, self.cand_d,
+                                self.vecs, alpha, self.keep, self.count)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with _CAPTURE_LOCK, torch.cuda.stream(side):
+            st = setup()  # warm-up
+            for t0, t1 in spans:
+                _prune_segment(st, t0, t1)
+            self.setup = torch.cuda.CUDAGraph()
+            with _capture(self.setup, pool):
+                self.state = setup()
+            self.segments = []
+            for t0, t1 in spans:
+                g = torch.cuda.CUDAGraph()
+                with _capture(g, self.setup.pool()):
+                    _prune_segment(self.state, t0, t1)
+                self.segments.append(g)
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def __call__(self, p_ids, cand, cand_d, vecs):
+        """Replay on the current stream over the first ``len(cand)`` rows
+        (the rest padding: candidate -1 at distance inf, nothing alive);
+        the outputs are copies, so the next replay cannot overwrite
+        them."""
+        n = len(cand)
+        self.p_ids[:n].copy_(p_ids)
+        self.cand[:n].copy_(cand)
+        self.cand[n:].fill_(-1)
+        self.cand_d[:n].copy_(cand_d)
+        self.cand_d[n:].fill_(torch.inf)
+        self.vecs[:n].copy_(vecs)
+        self.setup.replay()
+        for g in self.segments:
+            if not bool(self.state.alive.any()):
+                break
+            g.replay()
+        return self.keep[:n].clone(), self.count.clone()
+
+
+@contextlib.contextmanager
+def _capture(graph, pool):
+    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+    try:
+        yield
+    finally:
+        graph.capture_end()
+
+
+class PruneGraphs:
+    """The CUDA graphs of one builder's prune chunks, captured on first use
+    for each ``(rows, C, D, R, alpha)``, rows rounded up to a power of two
+    (at least 64) and padded, so a builder replays a few shapes.  A
+    graph's static buffers serve every replay, so a set is used by one
+    builder, one chunk at a time: a live index keeps one for its inserts
+    (which its mutation lock serializes).  The set's graphs share one memory pool, so it holds
+    about one shape's intermediates, not the sum: a graph may then reuse
+    blocks another one's replay writes, which is safe because the set
+    replays one graph at a time on one stream and copies its outputs
+    before the next chunk."""
+
+    def __init__(self):
+        self._graphs: dict[tuple, _CapturedPrune] = {}
+        self._pool = None
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __call__(self, p_ids, cand, cand_d, vecs, alpha: float, R: int):
+        nb, c = cand.shape
+        key = (_bucket(nb), c, vecs.shape[2], R, float(alpha))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = _CapturedPrune(*key[:3], alpha, R,
+                                                   cand.device, self._pool)
+            self._pool = g.setup.pool()
+        return g(p_ids, cand, cand_d, vecs)
 
 
 def robust_prune_batch(
@@ -176,6 +326,7 @@ def robust_prune_batch(
     R: int,
     counter: list,
     vecs: torch.Tensor | None = None,
+    graphs: PruneGraphs | None = None,
 ) -> torch.Tensor:
     """Batched RobustPrune as torch ops on ``data``'s device: ``[B, R]``
     kept ids (int64, -1 padded, compacted to the front of each row).
@@ -189,6 +340,8 @@ def robust_prune_batch(
     ``d(p*, v)`` comes from one ``‖a‖² + ‖b‖² − 2·a·b`` tile per row
     (exact on integer points, like every distance here).  ``vecs``
     optionally holds the ``[B, C, D]`` candidate vectors already gathered.
+    With ``graphs`` (on the card) each chunk replays its shape's CUDA
+    graph: the same ops, so the same kept ids and count.
     """
     dev = data.device
     p_ids = torch.as_tensor(p_ids, device=dev).long()
@@ -197,12 +350,14 @@ def robust_prune_batch(
     nb, c = cand.shape
     keep = torch.full((nb, R), -1, dtype=torch.long, device=dev)
     step = _rows_per_chunk(c, data.shape[1])
+    prune = (_prune_rows if graphs is None or dev.type != "cuda"
+             else graphs)
     for lo in range(0, nb, step):
         hi = min(lo + step, nb)
         v = (vecs[lo:hi].float() if vecs is not None
              else data[cand[lo:hi].clamp_min(0)].float())
-        keep[lo:hi], count = _prune_rows(p_ids[lo:hi], cand[lo:hi],
-                                         cand_d[lo:hi], v, alpha, R)
+        keep[lo:hi], count = prune(p_ids[lo:hi], cand[lo:hi],
+                                   cand_d[lo:hi], v, alpha, R)
         counter[0] = counter[0] + count
     return keep
 
@@ -257,6 +412,12 @@ def _random_regular_init(
     return graph.astype(np.int64)
 
 
+def _bucket(n: int) -> int:
+    """``n`` rounded up to a power of two, at least 64 (a prune chunk's
+    rows on the card)."""
+    return max(64, 1 << max(0, n - 1).bit_length())
+
+
 def _apply_reverse_edges(
     batch: torch.Tensor,  # [B] the just-(re)pruned point ids
     pruned: torch.Tensor,  # [B, R] their new neighbor lists (-1 pad)
@@ -265,13 +426,19 @@ def _apply_reverse_edges(
     alpha: float,
     R: int,
     counter: list,
+    graphs: PruneGraphs | None = None,
 ) -> None:
     """Grouped reverse-edge update as torch ops on the graph's device:
     every q ∈ pruned[b] gains the edge q → batch[b].  An edge already
     present is skipped; new sources group by destination with one stable
     sort; destinations with room take one scatter into their free tail
     (rows stay compacted), and the destinations that would overflow R are
-    re-pruned together over ``row ∪ new sources``."""
+    re-pruned together over ``row ∪ new sources``.  The re-prune runs at
+    bucketed shapes, so a build replays a few CUDA graphs (``graphs``)
+    and captures no new one each round: :class:`PruneGraphs` pads a
+    chunk's rows to a power of two, and the width here is ``R +
+    16·⌈max_new/16⌉``, the padding candidate -1 at distance inf.  A padded row has nothing alive and keeps -1; padded
+    lanes are neither kept nor counted."""
     dev = graph.device
     src_p = batch.long().repeat_interleave(pruned.shape[1])
     dst_q = pruned.reshape(-1).long()
@@ -304,14 +471,15 @@ def _apply_reverse_edges(
     if n_ovf == 0:
         return
     max_new = int(cnt_new[~fits].max())
-    cand = torch.full((n_ovf, R + max_new), -1, dtype=torch.long, device=dev)
+    width = R + 16 * -(-max_new // 16)
+    cand = torch.full((n_ovf, width), -1, dtype=torch.long, device=dev)
     cand[:, :R] = graph[ovf]
     ovf_pos = torch.full((len(uq),), -1, dtype=torch.long, device=dev)
     ovf_pos[~fits] = torch.arange(n_ovf, device=dev)
     m_ovf = ~m_fit
     cand[ovf_pos[seg[m_ovf]], R + rank[m_ovf]] = ps[m_ovf]
     pruned_q = torch.empty((n_ovf, R), dtype=torch.long, device=dev)
-    step = _rows_per_chunk(cand.shape[1], data.shape[1])
+    step = _rows_per_chunk(width, data.shape[1])
     for lo in range(0, n_ovf, step):
         c = cand[lo:lo + step]
         valid = c >= 0
@@ -321,7 +489,7 @@ def _apply_reverse_edges(
         counter[0] = counter[0] + valid.sum()  # scoring q's candidates
         pruned_q[lo:lo + step] = robust_prune_batch(
             ovf[lo:lo + step], c, cand_d, data, alpha, R, counter,
-            vecs=cvecs)
+            vecs=cvecs, graphs=graphs)
     graph[ovf] = pruned_q.to(graph.dtype)
 
 

@@ -5,7 +5,9 @@
 //   * repro/kernels/flash_attention.py  flash_attention_pallas (_flash_kernel)
 //     -> repro_flash_attention (K5): q [B,H,S,Dh], k/v [B,Hkv,T,Dh] ->
 //        [B,H,S,Dh], GQA (head h reads KV head h / (H/Hkv)), optionally
-//        causal with query i attending keys <= i + (T - S).
+//        causal with query i attending keys <= i + (T - S); on request also
+//        each row's log-sum-exp [B,H,S] f32 (m + log l of its running max
+//        and sum, one store a row), the training backward's residual.
 //   * repro/kernels/flash_attention.py  flash_decode_pallas (_decode_kernel)
 //     -> repro_flash_decode (K6): one query token per row, q [B,H,Dh]
 //        against a cache [B,Hkv,T,Dh] of which the first cache_len[b]
@@ -166,7 +168,7 @@ constexpr size_t prefill_smem_floats() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
+              const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
               int h, int hkv, int s, int t, float scale, int causal) {
   constexpr int QS = DH + PAD, PS = TK + PAD;
   constexpr int CW = DH / 16;  // output columns per thread
@@ -298,6 +300,9 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty + 16 * i;
     if (qi >= s) continue;
     const float denom = fmaxf(l_run[i], 1e-30f);
+    // the half-warp shares the row's statistics: one store per row
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * h + head) * s + qi] = m_run[i] + logf(denom);
     T* orow = oh + (size_t)qi * DH + tx * CW;
 #pragma unroll
     for (int c = 0; c < CW; ++c) orow[c] = from_f32<T>(acc[i][c] / denom);
@@ -311,6 +316,7 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int MMA_WARPS = 4;              // 16 query rows each
 constexpr int MMA_THREADS = MMA_WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -394,7 +400,8 @@ template <int DH, bool SPLIT_P>
 __global__ void __launch_bounds__(MMA_THREADS, DH <= 64 ? 4 : 2)
 flash_prefill_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                  int h, int hkv, int s, int t, float scale_log2, int causal) {
+                  float* __restrict__ lse, int h, int hkv, int s, int t, float scale_log2,
+                  int causal) {
   constexpr int RS = DH + 8;         // padded row, bf16 elements
   constexpr int KD = DH / 16;        // k16 steps over the head dim
   constexpr int NT = TK / 8;         // 8-key score tiles
@@ -552,6 +559,10 @@ flash_prefill_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     const int row = row0 + r * 8;
     if (row >= s) continue;
     const float denom = fmaxf(l_run[r], 1e-30f);
+    // natural log: the running max is in the log2 domain; the quad shares it
+    if (lse != nullptr && tq == 0)
+      lse[((size_t)b * h + head) * s + row] =
+          (m_run[r] == NEG ? NEG : m_run[r] * LN2) + logf(denom);
     __nv_bfloat16* orow = oh + (size_t)row * DH + 2 * tq;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
@@ -820,8 +831,8 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ kc,
 }
 
 template <typename T, int DH>
-int launch_prefill(const void* q, const void* k, const void* v, void* out, int b,
-                   int h, int hkv, int s, int t, float scale, int causal,
+int launch_prefill(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int b, int h, int hkv, int s, int t, float scale, int causal,
                    cudaStream_t stream) {
   const int smem = (int)(prefill_smem_floats<DH>() * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -829,7 +840,7 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out, int b
   if (err != cudaSuccess) return (int)err;
   dim3 grid((s + TQ - 1) / TQ, h, b);
   flash_prefill<T, DH><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, h, hkv, s, t, scale, causal);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, h, hkv, s, t, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -853,8 +864,8 @@ int launch_decode(const void* q, const void* kc, const void* vc, const int* lens
 }
 
 template <int DH, bool SPLIT_P>
-int launch_prefill_mma(const void* q, const void* k, const void* v, void* out, int b,
-                       int h, int hkv, int s, int t, float scale, int causal,
+int launch_prefill_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int b, int h, int hkv, int s, int t, float scale, int causal,
                        cudaStream_t stream) {
   const int smem = (int)mma_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -863,22 +874,25 @@ int launch_prefill_mma(const void* q, const void* k, const void* v, void* out, i
   dim3 grid((s + TQ - 1) / TQ, h, b);
   flash_prefill_mma<DH, SPLIT_P><<<grid, MMA_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, h, hkv, s, t, scale * LOG2E, causal);
+      (__nv_bfloat16*)out, lse, h, hkv, s, t, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
 // f32: the FP32 kernel; bf16: the tensor-core kernel (split P unless
 // `split_p` is 0, which only the timing of a single-bf16 P asks for)
 int prefill_dh(int dh, const void* q, const void* k, const void* v, void* out,
-               int b, int h, int hkv, int s, int t, float scale, int causal,
+               float* lse, int b, int h, int hkv, int s, int t, float scale, int causal,
                int bf16, int split_p, cudaStream_t st) {
 #define REPRO_PREFILL_CASE(DH)                                                        \
   case DH:                                                                            \
     if (!bf16)                                                                        \
-      return launch_prefill<float, DH>(q, k, v, out, b, h, hkv, s, t, scale, causal, st); \
+      return launch_prefill<float, DH>(q, k, v, out, lse, b, h, hkv, s, t, scale,     \
+                                       causal, st);                                   \
     if (split_p)                                                                      \
-      return launch_prefill_mma<DH, true>(q, k, v, out, b, h, hkv, s, t, scale, causal, st); \
-    return launch_prefill_mma<DH, false>(q, k, v, out, b, h, hkv, s, t, scale, causal, st);
+      return launch_prefill_mma<DH, true>(q, k, v, out, lse, b, h, hkv, s, t, scale,  \
+                                          causal, st);                                \
+    return launch_prefill_mma<DH, false>(q, k, v, out, lse, b, h, hkv, s, t, scale,   \
+                                         causal, st);
   switch (dh) {
     REPRO_PREFILL_CASE(16)
     REPRO_PREFILL_CASE(32)
@@ -927,12 +941,14 @@ extern "C" size_t repro_flash_decode_smem(int group, int dh, int chunk, int bf16
   return 0;
 }
 
+// lse: [B, H, S] f32, each row's natural log-sum-exp of its scaled scores
+// (the backward's residual), or null to write none.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* out, int b, int h, int hkv, int s, int t,
-                                     int dh, float scale, int causal, int bf16,
+                                     void* out, void* lse, int b, int h, int hkv, int s,
+                                     int t, int dh, float scale, int causal, int bf16,
                                      int split_p, void* stream) {
-  return prefill_dh(dh, q, k, v, out, b, h, hkv, s, t, scale, causal, bf16, split_p,
-                    (cudaStream_t)stream);
+  return prefill_dh(dh, q, k, v, out, (float*)lse, b, h, hkv, s, t, scale, causal, bf16,
+                    split_p, (cudaStream_t)stream);
 }
 
 // part: [B * Hkv * n_split * dec_stride(group, Dh)] f32 scratch; tickets: [B * Hkv]

@@ -14,7 +14,10 @@ significant bits; K5 in f32 and K6 use FP32 FMAs only (no tensor cores, no
 TF32).  K6 splits each row's cache over blocks (:func:`decode_plan`, from
 the cache's shape, so the lengths stay on the card) and combines the
 splits in the same launch through scratch kept for each (device, stream),
-which the launch leaves ready for the next one.
+which the launch leaves ready for the next one.  K5 writes each row's
+log-sum-exp on request (:func:`flash_attention_lse_cuda`): one store a
+row of the running max and sum it already holds, for the training
+backward (:mod:`repro_torch.kernels.flash_vjp`).
 """
 
 from __future__ import annotations
@@ -27,8 +30,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention as flash_decode_plain
 from repro_torch.kernels.ref import mha_attention as flash_attention_plain
+from repro_torch.kernels.ref import \
+    mha_attention_lse as flash_attention_lse_plain
 
-__all__ = ["decode_plan", "flash_attention_cuda", "flash_attention_plain",
+__all__ = ["decode_plan", "flash_attention_cuda", "flash_attention_lse_cuda",
+           "flash_attention_lse_plain", "flash_attention_plain",
            "flash_attention_single_p_cuda", "flash_decode_cuda",
            "flash_decode_plain"]
 
@@ -45,8 +51,8 @@ _F = ctypes.c_float
 @functools.cache
 def _lib():
     lib = _build.library("attention")
-    lib.repro_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _I, _F, _I, _I, _I, _P]
+    lib.repro_flash_attention.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                          _I, _I, _F, _I, _I, _I, _P]
     lib.repro_flash_attention.restype = _I
     lib.repro_flash_decode.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _I, _I, _F, _I, _P]
@@ -134,31 +140,44 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return h, hkv, dh
 
 
-def _prefill(q, k, v, causal, scale, split_p: bool) -> torch.Tensor:
+def _prefill(q, k, v, causal, scale, split_p: bool, lse: bool = False):
+    """K5's launch: the output, and with ``lse`` also each row's
+    log-sum-exp [B, H, S] f32 (None leaves the kernel's store out)."""
     h, hkv, dh = _check(q, k, v, 4)
     b, s, t = q.shape[0], q.shape[2], k.shape[2]
     if b > 65535 or h > 65535:
         raise ValueError("batch or heads too large for one launch")
     scale = scale if scale is not None else dh**-0.5
     out = torch.empty_like(q)
+    row_lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+               if lse else None)
     if out.numel() == 0:
-        return out
+        return out, row_lse
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.count("flash_attention")
     rc = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv,
-        s, t, dh, float(scale), int(causal), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        row_lse.data_ptr() if lse else None, b, h, hkv, s, t, dh,
+        float(scale), int(causal), int(q.dtype == torch.bfloat16),
         int(split_p), stream)
     _build.check(rc, "flash_attention")
-    return out
+    return out, row_lse
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          scale: float | None = None) -> torch.Tensor:
     """K5: q [B,H,S,Dh], k/v [B,Hkv,T,Dh] -> [B,H,S,Dh] in q's dtype."""
-    return _prefill(q, k, v, causal, scale, True)
+    return _prefill(q, k, v, causal, scale, True)[0]
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             scale: float | None = None):
+    """K5 with each row's log-sum-exp: ``(out [B,H,S,Dh], lse [B,H,S]
+    f32)``, the residuals of the training backward."""
+    return _prefill(q, k, v, causal, scale, True, lse=True)
 
 
 def flash_attention_single_p_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -168,7 +187,7 @@ def flash_attention_single_p_cuda(q: torch.Tensor, k: torch.Tensor,
     yardstick for the price of the 16-bit P, never called by the port."""
     if q.dtype != torch.bfloat16:
         raise TypeError("the single-P variant exists for bfloat16 only")
-    return _prefill(q, k, v, causal, scale, False)
+    return _prefill(q, k, v, causal, scale, False)[0]
 
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,

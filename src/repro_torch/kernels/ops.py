@@ -18,6 +18,17 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import topk as _topk
 
 
+def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
+    """K5's serving call and K6 have no backward: under grad mode with an
+    input that requires grad they raise, rather than return an output the
+    gradient silently stops at."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name} has no backward; differentiate attention through "
+            "repro_torch.kernels.flash_vjp.flash_attention_fa2, or run "
+            "under torch.no_grad() / torch.inference_mode()")
+
+
 def _on_cuda(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
@@ -56,7 +67,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
     """Serving-path attention (K5): q [B,H,S,Dh], k/v [B,Hkv,T,Dh] ->
-    [B,H,S,Dh] in q's dtype, f32 inside."""
+    [B,H,S,Dh] in q's dtype, f32 inside.  Raises under grad (see
+    :func:`flash_attention_lse` for the training path)."""
+    _refuse_grad("flash_attention", q, k, v)
     if _on_cuda(q, k):
         return _flash.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
@@ -64,11 +77,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return ref.mha_attention(q, k, v, causal=causal, scale=scale)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale: float | None = None):
+    """K5 with each row's log-sum-exp: ``(out [B,H,S,Dh], lse [B,H,S]
+    f32)``, the forward of the training path
+    (:mod:`repro_torch.kernels.flash_vjp`, whose autograd function calls
+    it with grad off)."""
+    if _on_cuda(q, k):
+        return _flash.flash_attention_lse_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            scale=scale)
+    return ref.mha_attention_lse(q, k, v, causal=causal, scale=scale)
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                  scale: float | None = None) -> torch.Tensor:
     """One-token decode attention (K6). q: [B,H,Dh], cache: [B,Hkv,T,Dh],
-    cache_len: [B] valid positions per row."""
+    cache_len: [B] valid positions per row.  Raises under grad."""
+    _refuse_grad("flash_decode", q, k_cache, v_cache)
     if _on_cuda(q, k_cache):
         return _flash.flash_decode_cuda(
             q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),

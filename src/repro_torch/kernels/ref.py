@@ -118,6 +118,21 @@ def _masked_softmax_av(logits, valid, vf):
     return (p / denom) @ vf
 
 
+def _mha_logits(q, k, causal: bool, scale):
+    """Scaled f32 scores [B, Hkv, G, S, T] and their validity mask."""
+    b, h, s, dh = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else dh**-0.5
+    qf = (q.float() * scale).reshape(b, hkv, h // hkv, s, dh)
+    logits = qf @ k.float()[:, :, None].transpose(-1, -2)  # [b,hkv,g,s,t]
+    if causal:
+        pos_q = torch.arange(s, device=q.device)[:, None] + (t - s)
+        valid = pos_q >= torch.arange(t, device=q.device)[None, :]
+    else:
+        valid = torch.ones((1, t), dtype=torch.bool, device=q.device)
+    return logits, valid
+
+
 def mha_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     """Multi-head attention, the plain version of K5.
 
@@ -126,19 +141,20 @@ def mha_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     causal.  q is scaled in f32 before the product, scores and probabilities
     stay f32 (V is upcast), and the result is cast to q.dtype.
     """
-    b, h, s, dh = q.shape
-    hkv, t = k.shape[1], k.shape[2]
-    group = h // hkv
-    scale = scale if scale is not None else dh**-0.5
-    qf = (q.float() * scale).reshape(b, hkv, group, s, dh)
-    logits = qf @ k.float()[:, :, None].transpose(-1, -2)  # [b,hkv,g,s,t]
-    if causal:
-        pos_q = torch.arange(s, device=q.device)[:, None] + (t - s)
-        valid = pos_q >= torch.arange(t, device=q.device)[None, :]
-    else:
-        valid = torch.ones((1, t), dtype=torch.bool, device=q.device)
+    logits, valid = _mha_logits(q, k, causal, scale)
     out = _masked_softmax_av(logits, valid, v.float()[:, :, None])
-    return out.reshape(b, h, s, dh).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def mha_attention_lse(q, k, v, *, causal: bool = True,
+                      scale: float | None = None):
+    """:func:`mha_attention` and each row's log-sum-exp of its scaled
+    scores, ``(out, lse [B, H, S] f32)``, the plain version of K5 with its
+    ``lse`` output (masked scores are -1e30, as in the kernel)."""
+    logits, valid = _mha_logits(q, k, causal, scale)
+    out = _masked_softmax_av(logits, valid, v.float()[:, :, None])
+    lse = torch.logsumexp(torch.where(valid, logits, NEG_INF), dim=-1)
+    return out.reshape(q.shape).to(q.dtype), lse.reshape(q.shape[:3])
 
 
 def decode_attention(q, k_cache, v_cache, cache_len=None, scale=None):

@@ -2,15 +2,21 @@
 decode and cross-attention paths (counterpart of
 ``repro/models/attention.py``).
 
-Every path goes through :mod:`repro_torch.kernels.ops`: ``attn_forward``,
-``attn_prefill`` and ``cross_attn_forward`` through ``flash_attention``
-(K5 on the card; the reference's ``flash_attention_jnp`` and its serving
-kernel compute the same function), ``attn_decode`` and
-``cross_attn_decode`` through ``flash_decode`` (K6).  Layouts are the
-reference's: activations [B, S, D], heads [B, H, S, Dh], weights
-[in, out].  Whisper's projections carry biases on q, v and the output
-(``AttnDims.bias``); ``rope_theta == 0`` means no RoPE.  The training
-path's ``fa2`` and ``seq_shard`` branches are not ported.
+Every path runs K5 or K6.  ``attn_forward``, ``attn_prefill`` and
+``cross_attn_forward`` go through ``ops.flash_attention`` (K5 on the
+card) when no gradient is wanted, and through
+:func:`repro_torch.kernels.flash_vjp.flash_attention_fa2` (K5 with its
+log-sum-exp, FA2 recompute backward) when grad mode is on and an input
+requires grad.  The reference's two training implementations,
+``attn_impl="scan"`` (``flash_attention_jnp``, differentiated by JAX) and
+``"fa2"`` (its custom-VJP flash attention), compute the same function and
+the same gradient, so both map to that one path and the port reads no
+``attn_impl``.  ``attn_decode`` and ``cross_attn_decode`` go through
+``ops.flash_decode`` (K6), which has no backward and raises under grad.
+Layouts are the reference's: activations [B, S, D], heads [B, H, S, Dh],
+weights [in, out].  Whisper's projections carry biases on q, v and the
+output (``AttnDims.bias``); ``rope_theta == 0`` means no RoPE.  The
+``seq_shard`` constraints wait for the mesh slice.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.common.params import P
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_vjp import flash_attention_fa2
 from repro_torch.models import layers
 
 
@@ -87,6 +94,14 @@ def _merge_heads(o: torch.Tensor, p, dims: AttnDims) -> torch.Tensor:
     return _out(o.transpose(1, 2).reshape(b, s, h * dh), p, dims)
 
 
+def _attend(q, k, v, *, causal: bool) -> torch.Tensor:
+    """K5: through the autograd function when a gradient is wanted."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_fa2(q, k, v, causal=causal)
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
 def attn_forward(x: torch.Tensor, p, dims: AttnDims, rope, *,
                  causal: bool = True) -> torch.Tensor:
     """Full-sequence attention. x: [B, S, D] → [B, S, D].  ``rope`` is as
@@ -106,7 +121,7 @@ def attn_prefill(x: torch.Tensor, p, dims: AttnDims, rope, *,
         q = layers.rope_rotate(q, *rope)
         k = layers.rope_rotate(k, *rope)
     k, v = k.contiguous(), v.contiguous()
-    o = ops.flash_attention(q, k, v, causal=causal)
+    o = _attend(q, k, v, causal=causal)
     return _merge_heads(o, p, dims), {"k": k, "v": v}
 
 
@@ -160,7 +175,7 @@ def cross_attn_forward(x: torch.Tensor, p, kv: dict,
     """x: [B, S, D] queries over fixed memory KV ([B, Hkv, F, Dh]),
     non-causal (K5 at S ≠ F on the card)."""
     q = _heads(_q(x, p, dims), dims.n_heads, dims.head_dim)
-    o = ops.flash_attention(q, kv["k"], kv["v"], causal=False)
+    o = _attend(q, kv["k"], kv["v"], causal=False)
     return _merge_heads(o, p, dims)
 
 

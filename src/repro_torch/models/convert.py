@@ -32,10 +32,12 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> nn.Module:
+def params_from_jax(cfg: ModelConfig, tree: dict, device=None, *,
+                    requires_grad: bool = False) -> nn.Module:
     """The reference's parameters (numpy leaves) → the port's module on
-    ``device`` (the card unless the CPU is asked).  Raises when the tree's
-    structure or any leaf's shape differs from the port's spec."""
+    ``device`` (the card unless the CPU is asked), trainable with
+    ``requires_grad``.  Raises when the tree's structure or any leaf's
+    shape differs from the port's spec."""
     device = resolve_device(device)
     # Whisper's decoder positions are sized by the reference's max_seq_len
     n_pos = np.shape(tree["dec_pos"])[0] if "dec_pos" in tree else 0
@@ -50,4 +52,5 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device=None) -> nn.Module:
         if tuple(np.shape(got[path])) != tuple(p.shape):
             raise ValueError(f"{path}: shape {np.shape(got[path])} against "
                              f"the spec's {p.shape}")
-    return params_module(cfg, par.tree_map(lambda a: _tensor(a, device), tree))
+    return params_module(cfg, par.tree_map(lambda a: _tensor(a, device), tree),
+                         requires_grad=requires_grad)

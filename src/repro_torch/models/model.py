@@ -1,8 +1,8 @@
-"""Model assembly for inference (counterpart of ``repro/models/model.py``):
-every family the reference defines — dense, MoE (with Arctic's dense
-residual), hybrid Mamba + MoE + attention (Jamba), RWKV6, the Whisper
+"""Model assembly (counterpart of ``repro/models/model.py``): every
+family the reference defines — dense, MoE (with Arctic's dense residual),
+hybrid Mamba + MoE + attention (Jamba), RWKV6, the Whisper
 encoder-decoder and the VLM backbone — with its full-sequence forward,
-prefill and decode.
+training loss, prefill and decode.
 
 Parameters are declared once as a tree of :class:`P` leaves
 (:func:`param_spec`), with the reference's stacked block leaves
@@ -11,10 +11,14 @@ Parameters are declared once as a tree of :class:`P` leaves
 shapes and counts compare one to one.  Concrete parameters live in an
 ``nn.Module`` (:func:`params_module`) whose ``blocks`` (and
 ``enc_blocks``) hold one entry per layer, which the passes walk in a
-Python loop where the reference scans.  Parameters are frozen.
+Python loop where the reference scans.  Parameters are frozen for
+serving and trainable on request (``requires_grad``); under grad the
+full-sequence forward rematerialises each repeating block as
+``cfg.remat`` says (:func:`_remat`).
 
 Entry points:
   * ``forward(cfg, params, batch)`` → (logits [B, S_text, Vpad], aux)
+  * ``loss_fn(cfg, params, batch)`` → (loss, metrics), for training
   * ``prefill(cfg, params, batch, max_len)`` → (last-position logits
     [B, Vpad], cache at ``max_len``)
   * ``decode_step(cfg, params, cache, tokens, pos)`` → (logits [B, Vpad],
@@ -30,7 +34,6 @@ cross-attention KV.  Compute defaults to bf16: float parameters are cast
 to the compute dtype except those whose spec fixes a dtype (the MoE
 router, the SSM's ``a_log`` and ``d_skip`` stay f32); norms, activations
 and RoPE run in f32 inside.  Vocab is padded to a multiple of 256.
-Training (``loss_fn``, remat) is not ported.
 """
 
 from __future__ import annotations
@@ -279,23 +282,32 @@ def _per_layer(cfg: ModelConfig, tree: dict, pick: Callable) -> dict:
 
 
 class ParamNode(nn.Module):
-    """One dict of a parameter tree: tensors as frozen parameters, subtrees
-    as child modules, each read by its key (``node["wq"]``) in the spec's
-    order."""
+    """One dict of a parameter tree: tensors as parameters (trainable when
+    ``requires_grad``, frozen otherwise), subtrees as child modules, each
+    read by its key (``node["wq"]``) in the spec's order.  A parameter
+    given as one is kept as it is (shared); a tensor that requires grad
+    without being a leaf (a differentiable cast of trainable leaves) is
+    held as a buffer, so gradients flow through it to its leaves."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, requires_grad: bool = False):
         super().__init__()
         self._keys = list(tree)
         for k, v in tree.items():
-            if isinstance(v, torch.Tensor):
-                self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
+            if isinstance(v, nn.Parameter):
+                self.register_parameter(k, v)
+            elif isinstance(v, torch.Tensor) and v.requires_grad:
+                self.register_buffer(k, v, persistent=False)
+            elif isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(
+                    v, requires_grad=requires_grad and v.is_floating_point()))
             else:
-                self.add_module(k, _frozen(v))
+                self.add_module(k, _node(v, requires_grad))
 
     def __getitem__(self, key: str):
         if key in self._parameters:
             return self._parameters[key]
+        if key in self._buffers:
+            return self._buffers[key]
         return self._modules[key]
 
     def __contains__(self, key: str) -> bool:
@@ -305,27 +317,48 @@ class ParamNode(nn.Module):
         return list(self._keys)
 
 
-def _frozen(tree) -> nn.Module:
-    """Nested dicts/lists of tensors → ParamNode / ModuleList of frozen
-    parameters (tensors are shared, not copied)."""
+def _node(tree, requires_grad: bool = False) -> nn.Module:
+    """Nested dicts/lists of tensors → ParamNode / ModuleList of parameters
+    (tensors are shared, not copied)."""
     if isinstance(tree, (list, tuple)):
-        return nn.ModuleList([_frozen(t) for t in tree])
-    return ParamNode(tree)
+        return nn.ModuleList([_node(t, requires_grad) for t in tree])
+    return ParamNode(tree, requires_grad)
 
 
-def _tree(module: nn.Module):
-    """The inverse of :func:`_frozen`: nested dicts/lists of tensors."""
+def param_tree(module: nn.Module):
+    """The inverse of :func:`_node`: the module's leaves as nested dicts
+    and per-layer lists of tensors (the optimizers' and the train step's
+    tree)."""
     if isinstance(module, nn.ModuleList):
-        return [_tree(m) for m in module]
-    return {k: module[k] if k in module._parameters else _tree(module[k])
-            for k in module.keys()}
+        return [param_tree(m) for m in module]
+    return {k: module[k] if isinstance(module[k], torch.Tensor)
+            else param_tree(module[k]) for k in module.keys()}
 
 
-def params_module(cfg: ModelConfig, tree: dict) -> nn.Module:
+def params_module(cfg: ModelConfig, tree: dict, *,
+                  requires_grad: bool = False) -> nn.Module:
     """Concrete parameters shaped like :func:`param_spec` (stacked blocks)
     → the module, with ``blocks`` (and ``enc_blocks``) unstacked into one
-    entry per layer (views of the stacked tensors, no copy)."""
-    return _frozen(_per_layer(cfg, tree, lambda a, j: a[j]))
+    entry per layer (views of the stacked tensors, no copy).  Its float
+    leaves are trainable with ``requires_grad`` (training), frozen
+    otherwise (serving)."""
+    return _node(_per_layer(cfg, tree, lambda a, j: a[j]), requires_grad)
+
+
+def stacked_tree(cfg: ModelConfig, tree):
+    """A per-layer tree (:func:`param_tree`'s layout, or gradients and
+    optimizer moments shaped like it) → the reference's layout of
+    :func:`param_spec`, each block position's layers stacked on a new
+    leading axis (copies).  Checkpoints are written in this layout."""
+    spec = param_spec(cfg)
+    out = dict(tree)
+    for key in _STACKS:
+        if key not in tree:
+            continue
+        n = len(spec[key])
+        out[key] = [par.tree_map(lambda *ls: torch.stack(ls),
+                                 *tree[key][pos::n]) for pos in range(n)]
+    return out
 
 
 @functools.cache
@@ -342,7 +375,9 @@ def cast_params(cfg: ModelConfig, params: nn.Module, dtype,
     """Cast float parameters to the compute dtype, except the leaves whose
     spec declares a dtype (f32 routers and SSM decay logs stay f32), and
     move them to ``device`` when one is given.  Returns ``params`` itself
-    when nothing changes; never modifies it.  A module this function made
+    when nothing changes; never modifies it.  Under grad the cast is
+    differentiable: a trainable f32 leaf gets its gradient through its
+    bf16 copy.  A module this function made
     remembers its dtype, so casting it again to that dtype in place costs
     no walk over the parameters (the serving engine casts once, every step
     re-checks)."""
@@ -350,7 +385,7 @@ def cast_params(cfg: ModelConfig, params: nn.Module, dtype,
         return params
     device = torch.device(device) if device is not None else None
     kept = _kept_dtype_paths(cfg)
-    tree = _tree(params)
+    tree = param_tree(params)
 
     def target(path: str, t: torch.Tensor):
         if path in kept or not t.is_floating_point():
@@ -365,7 +400,7 @@ def cast_params(cfg: ModelConfig, params: nn.Module, dtype,
     if not any(t.dtype != target(path, t) or moves(t)
                for path, t in par.leaves_with_paths(tree)):
         return params
-    out = _frozen(par.tree_map_with_paths(
+    out = _node(par.tree_map_with_paths(
         lambda path, t: t.to(device=device, dtype=target(path, t)), tree))
     out.compute_dtype = dtype
     return out
@@ -431,23 +466,67 @@ def _embed_inputs(cfg: ModelConfig, params, batch: dict, dtype):
     return x, 0
 
 
-def _whisper_encode(cfg: ModelConfig, params, frames: torch.Tensor):
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy: keep the matrix products' outputs and
+    recompute the rest (the reference's ``dots_with_no_batch_dims_
+    saveable``; bmm is saved too)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """The reference's per-block rematerialisation: ``"none"`` keeps every
+    activation, ``"full"`` saves only the block's inputs and recomputes
+    the block in the backward, ``"dots"`` saves the matrix products'
+    outputs besides (``torch.utils.checkpoint``, non-reentrant)."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots) if mode == "dots" else None)
+
+    def rematted(*args):
+        if context is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+
+    return rematted
+
+
+def _whisper_encode(cfg: ModelConfig, params, frames: torch.Tensor,
+                    remat: str = "none"):
     """frames: [B, F, D] (the stubbed conv frontend's output) → memory."""
     dims = _dims(cfg).attn
-    x = frames + params["enc_pos"].to(frames.dtype)
-    for lp in params["enc_blocks"]:
+
+    def layer(x, lp):
         h = _apply_norm(x, lp["ln1"], cfg)
         x = x + attention.attn_forward(h, lp["attn"], dims, None,
                                        causal=False)
         h = _apply_norm(x, lp["ln2"], cfg)
-        x = x + layers.gelu_mlp(h, lp["mlp"])
+        return x + layers.gelu_mlp(h, lp["mlp"])
+
+    layer = _remat(layer, remat)
+    x = frames + params["enc_pos"].to(frames.dtype)
+    for lp in params["enc_blocks"]:
+        x = layer(x, lp)
     return _apply_norm(x, params["enc_final_norm"], cfg)
 
 
-def _frames(cfg: ModelConfig, params, batch: dict, dtype):
+def _frames(cfg: ModelConfig, params, batch: dict, dtype,
+            remat: str = "none"):
     frames = torch.as_tensor(batch["frames"],
                              device=params["embed"]["table"].device)
-    return _whisper_encode(cfg, params, frames.to(dtype))
+    return _whisper_encode(cfg, params, frames.to(dtype), remat)
 
 
 def _layer_forward(cfg: ModelConfig, dims: Dims, plan: LayerPlan, lp, x,
@@ -471,18 +550,34 @@ def _layer_forward(cfg: ModelConfig, dims: Dims, plan: LayerPlan, lp, x,
     return x + y, cache, aux
 
 
-def _run_stack(cfg: ModelConfig, params, x, mixer: Callable, memory=None):
-    """The decoder stack over a full sequence, layer by layer.  Returns (x,
-    caches, aux summed over layers)."""
+def _run_stack(cfg: ModelConfig, params, x, mixer: Callable, memory=None,
+               remat: str = "none"):
+    """The decoder stack over a full sequence, one repeating block (a
+    period of layers) at a time, each block rematerialised by ``remat``.
+    Returns (x, caches, aux summed within each block, then over
+    blocks)."""
     plans = layer_plan(cfg)
     dims = _dims(cfg)
+    n = len(plans)
+    stack = params["blocks"]
+
+    def block(x, j):
+        caches, aux_b = [], {}
+        for i in range(j, j + n):
+            x, cache, aux = _layer_forward(cfg, dims, plans[i - j], stack[i],
+                                           x, mixer, memory)
+            for k, v in aux.items():
+                aux_b[k] = aux_b.get(k, 0.0) + v
+            caches.append(cache)
+        return x, caches, aux_b
+
+    block = _remat(block, remat)
     caches, aux_sum = [], {}
-    for i, lp in enumerate(params["blocks"]):
-        x, cache, aux = _layer_forward(cfg, dims, plans[i % len(plans)], lp,
-                                       x, mixer, memory)
+    for j in range(0, len(stack), n):
+        x, cs, aux = block(x, j)
         for k, v in aux.items():
             aux_sum[k] = aux_sum.get(k, 0.0) + v
-        caches.append(cache)
+        caches.extend(cs)
     return x, caches, aux_sum
 
 
@@ -497,12 +592,14 @@ def forward(cfg: ModelConfig, params: nn.Module, batch: dict, *,
 
     Returns (logits [B, S_text, Vpad], aux).  aux holds the MoE losses
     averaged over repeating blocks (load_balance, router_z,
-    dropped_fraction; 0 without MoE), and nothing for Whisper."""
+    dropped_fraction; 0 without MoE), and nothing for Whisper.  Under
+    grad each block is rematerialised as ``cfg.remat`` says."""
     params = cast_params(cfg, params, dtype)
     dims = _dims(cfg)
+    remat = cfg.remat if torch.is_grad_enabled() else "none"
     x, n_prefix = _embed_inputs(cfg, params, batch, dtype)
     rope = _rope(dims.attn, torch.arange(x.shape[1], device=x.device))
-    memory = (_frames(cfg, params, batch, dtype)
+    memory = (_frames(cfg, params, batch, dtype, remat)
               if cfg.family == "encdec" else None)
 
     def mixer(plan, lp, h):
@@ -513,7 +610,7 @@ def forward(cfg: ModelConfig, params: nn.Module, batch: dict, *,
             return ssm.ssm_forward(h, lp["ssm"], dims.ssm), None
         return rwkv6.time_mix_forward(h, lp["tm"], dims.rwkv), None
 
-    x, _, aux_sum = _run_stack(cfg, params, x, mixer, memory)
+    x, _, aux_sum = _run_stack(cfg, params, x, mixer, memory, remat)
     aux = {}
     if cfg.family != "encdec":
         n_blocks = cfg.n_layers // len(layer_plan(cfg))
@@ -523,6 +620,34 @@ def forward(cfg: ModelConfig, params: nn.Module, batch: dict, *,
     if n_prefix:
         x = x[:, n_prefix:]
     return _logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: nn.Module, batch: dict, *,
+            dtype=torch.bfloat16):
+    """Next-token cross entropy (f32 softmax over the real vocab) + the MoE
+    aux losses: ``(loss, metrics)`` as the reference's.  Labels below 0
+    are masked out of the mean."""
+    logits, aux = forward(cfg, params, batch, dtype=dtype)
+    lg = logits.float()
+    labels = torch.as_tensor(batch["labels"], device=lg.device).long()
+    mask = (labels >= 0).float()
+    real = torch.arange(lg.shape[-1], device=lg.device) < cfg.vocab_size
+    lse = torch.logsumexp(torch.where(real, lg, -torch.inf), dim=-1)
+    gold = lg.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    ntok = mask.sum().clamp_min(1.0)
+    loss = nll.sum() / ntok
+    metrics = {"nll": loss, "ntokens": ntok}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.load_balance_loss * aux["load_balance"]
+        loss = loss + cfg.moe.router_z_loss * aux["router_z"]
+        metrics.update(
+            load_balance=aux["load_balance"],
+            router_z=aux["router_z"],
+            dropped_fraction=aux["dropped_fraction"],
+        )
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def _pad_time(a: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -669,19 +794,21 @@ def decode_step(cfg: ModelConfig, params: nn.Module, cache: dict,
 class Model:
     cfg: ModelConfig
     spec: dict
+    loss_fn: Callable
     forward_fn: Callable
     prefill_fn: Callable
     decode_fn: Callable
     init_cache_fn: Callable
 
-    def init(self, seed: int = 0, *, device=None,
-             dtype=torch.float32) -> nn.Module:
+    def init(self, seed: int = 0, *, device=None, dtype=torch.float32,
+             requires_grad: bool = False) -> nn.Module:
         """Parameters drawn by the spec's init rules from a generator seeded
         with ``seed`` on ``device`` (the card unless the CPU is asked), in
-        ``dtype`` except the leaves whose spec fixes theirs."""
+        ``dtype`` except the leaves whose spec fixes theirs; trainable
+        with ``requires_grad``, frozen for serving by default."""
         tree = par.init_params(self.spec, seed, dtype=dtype,
                                device=resolve_device(device))
-        out = params_module(self.cfg, tree)
+        out = params_module(self.cfg, tree, requires_grad=requires_grad)
         out.compute_dtype = dtype
         return out
 
@@ -709,6 +836,7 @@ def build_model(cfg: ModelConfig, *, max_seq_len: int = 0) -> Model:
     return Model(
         cfg=cfg,
         spec=spec,
+        loss_fn=functools.partial(loss_fn, cfg),
         forward_fn=functools.partial(forward, cfg),
         prefill_fn=functools.partial(prefill, cfg),
         decode_fn=functools.partial(decode_step, cfg),

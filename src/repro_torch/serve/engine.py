@@ -74,8 +74,9 @@ class ServeEngine:
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = cast_params(model.cfg, params, COMPUTE_DTYPE,
-                                  self.device)
+        with torch.inference_mode():  # trainable params cast as data
+            self.params = cast_params(model.cfg, params, COMPUTE_DTYPE,
+                                      self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.waves: list[WaveStats] = []
 
@@ -98,13 +99,16 @@ class ServeEngine:
         """Serve requests in waves of ``n_slots`` (static-slot batching).
 
         All prompts within a wave are right-aligned to the wave's max prompt
-        length (left-padding) so decode positions align.
+        length (left-padding) so decode positions align.  Runs under
+        ``torch.inference_mode()``: no autograd graph, whatever the
+        parameters' ``requires_grad``.
         """
         queue = list(requests)
-        while queue:
-            wave = queue[: self.cfg.n_slots]
-            queue = queue[len(wave):]
-            self._run_wave(wave)
+        with torch.inference_mode():
+            while queue:
+                wave = queue[: self.cfg.n_slots]
+                queue = queue[len(wave):]
+                self._run_wave(wave)
         return requests
 
     def _run_wave(self, wave: list[Request]) -> None:

@@ -174,7 +174,7 @@ def test_full_size_param_counts_match_reference(arch):
 def _restacked(cfg, tp):
     """The port's per-layer parameters back in the reference's stacked
     layout."""
-    tree = model._tree(tp)
+    tree = model.param_tree(tp)
     for key in ("blocks", "enc_blocks"):
         if key in tree:
             n = len(model.param_spec(cfg)[key])
@@ -202,7 +202,7 @@ def test_cast_keeps_declared_dtypes(pair):
                          jmodel.cast_params(jcfg, jp, jnp.bfloat16))
     def dtypes(params):
         return {path: t.dtype for path, t in
-                par.leaves_with_paths(model._tree(params))}
+                par.leaves_with_paths(model.param_tree(params))}
 
     want = dtypes(params_from_jax(cfg, jcast, device="cpu"))
     assert torch.float32 in want.values() or cfg.family not in ("moe",

@@ -1,10 +1,12 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor the ``repro``
 package (the subprocess below imports every module of the port's search,
-build, data, serving and telemetry paths, builds a DiskANN index and
-searches it on the ``torch`` and ``numpy`` backends, serves one request
-through ``AnnServer``, runs a fleet build with a kill through
-``repro_torch.fleet`` and its scheduler and cost model, and runs every
-model family's prefill and decode), and its entry
+build, data, serving, telemetry and training paths, builds a DiskANN
+index and searches it on the ``torch`` and ``numpy`` backends, serves one
+request through ``AnnServer``, runs a fleet build with a kill through
+``repro_torch.fleet`` and its scheduler and cost model, runs every model
+family's prefill and decode, takes a training step through
+``repro_torch.train`` and the FA2 backward, and runs one retrieval-
+attention decode step), and its entry
 points run on the card unless the CPU
 is asked for — without CUDA they raise instead of carrying on quietly on
 the CPU."""
@@ -123,6 +125,26 @@ for arch in ARCH_IDS:
     logits, cache = lm.decode_fn(params, cache, logits.argmax(-1),
                                  16 + cfg.n_patches)
     assert logits.shape == (2, 256) and bool(torch.isfinite(logits.float()).all())
+import repro_torch.kernels.flash_vjp, repro_torch.train
+import repro_torch.serve.retrieval_attention
+from repro_torch.data.pipeline import TokenPipeline, TokenPipelineConfig
+from repro_torch.train import TrainConfig, adamw, init_train_state, make_train_step
+
+cfg = smoke_config(get_arch("tinyllama_1_1b"))
+lm = build_model(cfg)
+opt, tcfg = adamw(), TrainConfig(warmup_steps=1)
+state = init_train_state(lm, opt, 0, tcfg, device="cpu")
+batch = TokenPipeline(TokenPipelineConfig(cfg.vocab_size, 16, 2)).next_batch()
+state, met = make_train_step(lm, opt, tcfg)(state, batch)
+assert int(state.step) == 1 and bool(torch.isfinite(met["loss"]))
+from repro_torch.serve import build_key_indexes, retrieval_decode_attention
+
+rng = np.random.default_rng(0)
+kc = rng.normal(size=(1, 1, 256, 16)).astype(np.float32)
+idx = build_key_indexes(kc, kc, device="cpu")
+o, st = retrieval_decode_attention(kc[:, :, -1], idx, top_t=8, window=4,
+                                   width=16, backend="fused", device="cpu")
+assert o.shape == (1, 1, 16) and st["n_distance_computations"] > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -145,7 +167,10 @@ def test_package_sources_never_name_jax_or_reference():
             "fleet/injector.py", "core/scheduler.py",
             "core/cost_model.py", "models/moe.py", "models/ssm.py",
             "models/rwkv6.py", "configs/kimi_k2_1t_a32b.py",
-            "configs/whisper_base.py"} <= names
+            "configs/whisper_base.py", "kernels/flash_vjp.py",
+            "serve/retrieval_attention.py", "train/__init__.py",
+            "train/optimizer.py", "train/compression.py",
+            "train/checkpoint.py", "train/train_step.py"} <= names
     for path in paths:
         for line in path.read_text().splitlines():
             stripped = line.strip()

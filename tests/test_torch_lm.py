@@ -244,7 +244,7 @@ def test_layers_match_reference():
 def _stacked(tp):
     """The port's parameters back in the reference's layout: the period-1
     dense stack's layers stacked along a leading axis."""
-    tree = model._tree(tp)
+    tree = model.param_tree(tp)
     tree["blocks"] = [par.tree_map(lambda *xs: torch.stack(xs),
                                    *tree["blocks"])]
     return tree
