@@ -56,7 +56,8 @@
    just after: ``LiveIndex.from_build`` (``fused``, ``split_max`` between
    the two largest shards' sizes after the inserts) with uint8 views,
    served by an ``AnnServer`` (split, nprobe=2, uint8 one request in two,
-   max_batch 64, max_wait_ms 2) under open-loop Poisson traffic at 1,000
+   max_batch 64, max_wait_ms 2), first given 4,000 requests at once with
+   no writer (its capacity), then open-loop Poisson traffic at 1,000
    QPS while a writer thread inserts 50,000 vectors of the index's
    distribution in 10 calls (one shard splits), deletes 5% of the ids
    uniformly and 30% of one shard's residents, searches the tombstoned
@@ -67,7 +68,9 @@
    index's; consolidation removes every resident dead id; no failed,
    rejected or shed request; no response holding an id deleted before
    the swap that preceded its submission; each swap's device uploads at
-   most one f32 and one uint8 pair a touched shard.  Then a full-size
+   most one f32 and one uint8 pair a touched shard; the writer thread's
+   prune graphs replayed, and their static buffers and pool at most their
+   budget and one capture (1 GiB) after the inserts.  Then a full-size
    ``save``, a logged tail (insert, delete, consolidate), a crash at
    ``wal.append.torn`` on the next insert, and ``LiveIndex.load`` on the
    card, which must equal the crashed index (ids, graphs, entries,
@@ -215,6 +218,7 @@ H100_HBM_BYTES = 3.35e12    # HBM3 bytes per second
 
 ANN_KERNELS = ("pairwise_distance", "pairwise_distance_u8", "fused_beam", "knn")
 LIVE_INSERTS, LIVE_CALLS, LIVE_QPS = 50_000, 10, 1000.0  # the live phase
+LIVE_CAPACITY_N = 4000  # requests at once before the writer starts
 # rounds between the fleet's periodic checkpoints: at 64 the periodic saves
 # took 20% of the fleet's wall on an H100 80GB HBM3 host at 700 W, at 128
 # 5% (PERF.md §6); the target is ~10%
@@ -1493,6 +1497,7 @@ def live_path(torch, ds, res, split, recalls):
     import numpy as np
 
     from repro_torch.configs.base import IndexConfig
+    from repro_torch.core import vamana
     from repro_torch.data.synthetic import exact_ground_truth, make_clustered
     from repro_torch.durability import CrashInjector, SimulatedCrash
     from repro_torch.kernels import reset_counts
@@ -1559,6 +1564,20 @@ def live_path(torch, ds, res, split, recalls):
                 li.insert_batch(new[c * per:(c + 1) * per])
                 swap(srv, f"insert {c}")
             report["inserts_s"] = time.perf_counter() - t_w
+            # the writer's prune graphs (its thread's set) stay in budget
+            gs = vamana.thread_prune_graphs()
+            pool_b, card_b = gs.pool_bytes(), gs.card_bytes()
+            log(f"live prune graphs after the inserts: {len(gs)} kept, "
+                f"{gs.captures} captured, {gs.resets} resets; static buffers "
+                f"and pool {card_b / 2**20:.1f} MiB (pool "
+                f"{pool_b / 2**20:.1f}; budget {gs.max_bytes / 2**20:.0f}); "
+                f"card allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+                f"GiB, reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+            need(len(gs) > 0 and pool_b > 0, "the writer's inserts replayed "
+                 "no prune graph, or its pool's bytes were not read")
+            need(card_b <= gs.max_bytes + (1 << 30), f"the writer's prune "
+                 f"graphs hold {card_b / 2**20:.1f} MiB, over their budget "
+                 f"and one capture (1 GiB)")
             need(li.n_shards == len(res.shards) + 1,
                  f"the inserts left {li.n_shards} shards, not one split")
             t_d = time.perf_counter()
@@ -1614,6 +1633,10 @@ def live_path(torch, ds, res, split, recalls):
             async with srv:
                 await srv.submit(q[0])  # served after the warm-up
                 warm_stats, srv.stats = srv.stats, ServerStats()
+                # capacity with no writer: LIVE_CAPACITY_N requests at once
+                await poisson_load(srv, q, LIVE_CAPACITY_N, None, 6,
+                                   overrides=overrides)
+                cap_stats, srv.stats = srv.stats, ServerStats()
                 done, errors = threading.Event(), []
                 th = threading.Thread(target=run_writer,
                                       args=(srv, done, errors))
@@ -1624,10 +1647,19 @@ def live_path(torch, ds, res, split, recalls):
                 th.join()
                 end = registry_sum("search_device_uploads_total")
                 wall = time.perf_counter() - t_s
-            return srv, warm_stats, out, rejected, errors, end, wall
+            return (srv, warm_stats, cap_stats, out, rejected, errors, end,
+                    wall)
 
-        srv, warm_stats, out, rejected, errors, end, wall = asyncio.run(
-            serve())
+        (srv, warm_stats, cap_stats, out, rejected, errors, end,
+         wall) = asyncio.run(serve())
+        cap = cap_stats.snapshot()
+        log("live capacity with no writer " + json.dumps({
+            "requests": cap["n_completed"], "served_qps": cap["qps"],
+            "engine_service_ms": cap["engine_service_ms"],
+            "mean_occupancy": cap["batch_occupancy"]["mean"],
+            "failed": cap["n_failed"]}))
+        need(cap_stats.n_failed == 0 and cap_stats.n_completed
+             == LIVE_CAPACITY_N, "live serving: the capacity probe failed")
         if errors:
             raise errors[0]
         for w, nxt in zip(windows, windows[1:] + [dict(start=end)]):
@@ -1964,12 +1996,14 @@ def check_vamana_round(torch, res):
     shard's size, from a random regular graph (every row full, so the
     reverse edges overflow as in a pass's first rounds): K3 gives the pool
     on the card, then the prune and the reverse-edge update run on the
-    card (each prune chunk replaying its shape's CUDA graph, the overflow
-    re-prune at bucketed shapes) and on the CPU (the eager loop with its
-    host early exit) from the same pool and graph.  Every distance is
-    an exact integer, so the kept ids, the graph and the distance counter
-    must be equal.  The card's round is timed by phase, then profiled:
-    kernels launched and device busy time against its wall time."""
+    card (each prune chunk replaying its shape's CUDA graph, rows and
+    lanes padded) and on the CPU (the eager loop with its host early exit)
+    from the same pool and graph.  Every distance is an exact integer, so
+    the kept ids, the graph and the distance counter must be equal.  The
+    eager loop on the card (what chunks of rows too wide for a graph run,
+    as consolidation's) is held to the CPU's on the same pool too.  The
+    card's round is timed by phase, then profiled: kernels launched and
+    device busy time against its wall time."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1985,8 +2019,6 @@ def check_vamana_round(torch, res):
     graph0 = vamana._random_regular_init(n, cfg.degree, rng)
     batch = rng.permutation(n)[:256]
 
-    graphs = vamana.PruneGraphs()  # the card's rounds replay CUDA graphs
-
     def one_round(dev, pool_in=None):
         x = torch.from_numpy(ints).to(dev)
         g = torch.from_numpy(graph0.astype(np.int32)).to(dev)
@@ -1999,12 +2031,11 @@ def check_vamana_round(torch, res):
             ids, dists = (t.to(dev) for t in pool_in)
         t1 = time.perf_counter()
         kept = vamana.robust_prune_batch(b, ids, dists, x, 1.2, cfg.degree,
-                                         counter, graphs=graphs)
+                                         counter)
         g[b] = kept.to(g.dtype)
         int(counter[0])
         t2 = time.perf_counter()
-        vamana._apply_reverse_edges(b, kept, g, x, 1.2, cfg.degree, counter,
-                                    graphs)
+        vamana._apply_reverse_edges(b, kept, g, x, 1.2, cfg.degree, counter)
         count = int(counter[0])
         t3 = time.perf_counter()
         return (ids, dists), kept.cpu(), g.cpu(), count, (t1 - t0, t2 - t1,
@@ -2014,6 +2045,7 @@ def check_vamana_round(torch, res):
     pool_c, kc, gc, cc, (tb, tp, tr) = one_round("cuda")
     _, kh, gh, ch, (_, hp, hr) = one_round("cpu", pool_c)
     same = (torch.equal(kc, kh), torch.equal(gc, gh), cc == ch)
+    graphs = vamana.thread_prune_graphs()
     log(f"vamana round on integer points (n={n}, 256 points, pool {pool}): "
         f"card (prune chunks from {len(graphs)} CUDA graphs) vs CPU (eager, "
         f"host early exit) keep/graph/counter equal={same} counter={cc}; card "
@@ -2021,6 +2053,18 @@ def check_vamana_round(torch, res):
         f"{1e3 * tr:.2f} ms; CPU prune {1e3 * hp:.1f} ms, reverse edges "
         f"{1e3 * hr:.1f} ms")
     need(all(same), "a Vamana round's prune on the card differs from the CPU")
+    eager = []
+    for dev in ("cuda", "cpu"):
+        x = torch.from_numpy(ints).to(dev)
+        ids, dists = pool_c[0].to(dev).long(), pool_c[1].to(dev).float()
+        keep, count = vamana._prune_rows(
+            torch.from_numpy(batch).to(dev), ids, dists,
+            x[ids.clamp_min(0)], 1.2, cfg.degree)
+        eager.append((keep.cpu(), int(count)))
+    same = (torch.equal(eager[0][0], eager[1][0]), eager[0][1] == eager[1][1])
+    log(f"vamana prune, the eager loop on the card vs the CPU on the same "
+        f"pool: keep/counter equal={same}")
+    need(all(same), "the eager prune on the card differs from the CPU")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

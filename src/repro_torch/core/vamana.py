@@ -20,12 +20,14 @@ Two implementations share that schedule:
     destination (:func:`_apply_reverse_edges`), all as torch ops on the
     build's ``store`` and ``graph`` tensors.  The beam reads the live graph
     every round (the backends cache nothing for device tensors).  The
-    distance counter stays on the device and is read once a round.  A
-    live index's inserts replay the prune's chunks from CUDA graphs
-    (:class:`PruneGraphs`): a chunk is ~600 small launches whose host
-    calls, not their device time, set a round's pace beside the server's
-    thread.  An offline build runs them eagerly: alone, the graphs' first
-    captures and padded rows cost more than the launches they save.
+    distance counter stays on the device and is read once a round.  On
+    the card a prune chunk of narrow rows (a round's prune and its
+    overflow re-prune) replays CUDA graphs from its builder thread's
+    :class:`PruneGraphs`: such a chunk is ~600 small launches whose host
+    calls, not their device time, set a round's pace, the more so beside
+    a server's thread.  Chunks of wide rows (consolidation's 2-hop
+    candidates) run the same ops eagerly: there each op's device time
+    covers its launch, and 64 rows' graph would not fit the budget.
   * :func:`build_shard_index_vamana_sequential` is the paper-faithful
     one-point-at-a-time host numpy build, kept as the seed-loop baseline.
 
@@ -60,6 +62,12 @@ from repro_torch.telemetry import current_tracer, record_stage, stage_active
 # the chunks are large (4 GB of the card's 80); rows are independent, so
 # chunking changes nothing
 PRUNE_CHUNK_BYTES = 4 << 30
+# on the card: a prune chunk replays CUDA graphs when 64 of its rows, lanes
+# padded to 32, fit PRUNE_GRAPH_CHUNK_BYTES of working memory (its rows
+# then cut to a power of two that fits); a thread's graphs take about
+# PRUNE_GRAPHS_BYTES of the card at most (see PruneGraphs)
+PRUNE_GRAPH_CHUNK_BYTES = 256 << 20
+PRUNE_GRAPHS_BYTES = 3 << 30
 
 
 @dataclasses.dataclass
@@ -141,12 +149,28 @@ def _rows_per_chunk(c: int, d: int) -> int:
     return max(1, PRUNE_CHUNK_BYTES // (4 * c * (c + d + 8)))
 
 
+def _graph_rows(c: int, d: int) -> int:
+    """Rows of a card prune chunk that replays CUDA graphs: the largest
+    power of two whose working memory at ``C`` rounded up to 32 lanes fits
+    :data:`PRUNE_GRAPH_CHUNK_BYTES`; 0 when 64 rows do not (the chunk runs
+    eagerly)."""
+    c = _lanes(c)
+    rows = PRUNE_GRAPH_CHUNK_BYTES // (4 * c * (c + d + 8))
+    return 0 if rows < 64 else 1 << (rows.bit_length() - 1)
+
+
+def _lanes(c: int) -> int:
+    return 32 * -(-c // 32)
+
+
 PRUNE_SEGMENT = 16  # prune steps between the host's reads of `alive`
-# one capture at a time in the process: two threads capturing at once
-# (two fleet workers did, each on its own stream) invalidated a capture
-# on the H100 (cudaErrorStreamCaptureInvalidated); launches other threads
-# make meanwhile on their own streams are fine (thread_local mode)
-_CAPTURE_LOCK = threading.Lock()
+# one thread's prune graphs at a time in the process, captured or
+# replayed: two threads capturing at once (two fleet workers, each on its
+# own stream) invalidated a capture on the H100
+# (cudaErrorStreamCaptureInvalidated), and with captures alone serialized
+# the two workers' builds still failed now and then; launches of threads
+# that use no graph (a server's) run beside a capture (thread_local mode)
+_GRAPH_LOCK = threading.RLock()
 
 
 @dataclasses.dataclass
@@ -243,7 +267,7 @@ class _CapturedPrune:
 
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with _CAPTURE_LOCK, torch.cuda.stream(side):
+        with _GRAPH_LOCK, torch.cuda.stream(side):
             st = setup()  # warm-up
             for t0, t1 in spans:
                 _prune_segment(st, t0, t1)
@@ -257,19 +281,24 @@ class _CapturedPrune:
                     _prune_segment(self.state, t0, t1)
                 self.segments.append(g)
         torch.cuda.current_stream(dev).wait_stream(side)
+        # the static buffers (the state and intermediates are in the pool)
+        self.nbytes = sum(t.numel() * t.element_size() for t in (
+            self.p_ids, self.cand, self.cand_d, self.vecs, self.keep))
 
     def __call__(self, p_ids, cand, cand_d, vecs):
         """Replay on the current stream over the first ``len(cand)`` rows
-        (the rest padding: candidate -1 at distance inf, nothing alive);
-        the outputs are copies, so the next replay cannot overwrite
-        them."""
-        n = len(cand)
+        and ``cand.shape[1]`` lanes (the rest padding: candidate -1 at
+        distance inf, nothing alive); the outputs are copies, so the next
+        replay cannot overwrite them."""
+        n, c = cand.shape
         self.p_ids[:n].copy_(p_ids)
-        self.cand[:n].copy_(cand)
+        self.cand[:n, :c].copy_(cand)
+        self.cand[:n, c:].fill_(-1)
         self.cand[n:].fill_(-1)
-        self.cand_d[:n].copy_(cand_d)
+        self.cand_d[:n, :c].copy_(cand_d)
+        self.cand_d[:n, c:].fill_(torch.inf)
         self.cand_d[n:].fill_(torch.inf)
-        self.vecs[:n].copy_(vecs)
+        self.vecs[:n, :c].copy_(vecs)
         self.setup.replay()
         for g in self.segments:
             if not bool(self.state.alive.any()):
@@ -288,33 +317,72 @@ def _capture(graph, pool):
 
 
 class PruneGraphs:
-    """The CUDA graphs of one builder's prune chunks, captured on first use
-    for each ``(rows, C, D, R, alpha)``, rows rounded up to a power of two
-    (at least 64) and padded, so a builder replays a few shapes.  A
-    graph's static buffers serve every replay, so a set is used by one
-    builder, one chunk at a time: a live index keeps one for its inserts
-    (which its mutation lock serializes).  The set's graphs share one memory pool, so it holds
-    about one shape's intermediates, not the sum: a graph may then reuse
-    blocks another one's replay writes, which is safe because the set
-    replays one graph at a time on one stream and copies its outputs
-    before the next chunk."""
+    """One thread's CUDA graphs of prune chunks, captured on first use for
+    each ``(rows, C, D, R, alpha)``, rows rounded up to a power of two (at
+    least 64) and C to a multiple of 32, the padding dead, so a builder
+    replays a few shapes.  A graph's static buffers serve every replay, so
+    a set is used by one thread, one chunk at a time
+    (:func:`thread_prune_graphs`).  The graphs share one memory pool, so
+    their intermediates take about one shape's room, not the sum: a graph
+    may then reuse blocks another one's replay writes, which is safe
+    because the set replays one graph at a time on one stream and copies
+    its outputs before the next chunk.  The set's card memory
+    (:meth:`card_bytes`: the static buffers, and the pool with the
+    graphs' state and their captures' intermediates) is held near
+    ``max_bytes``: a capture that would start past it first drops every
+    graph and the pool (``resets``), which the allocator frees when it
+    next needs the room, so the set ends at most one capture over."""
 
-    def __init__(self):
+    def __init__(self, max_bytes: int = PRUNE_GRAPHS_BYTES):
+        self.max_bytes = max_bytes
+        self.captures = 0
+        self.resets = 0
         self._graphs: dict[tuple, _CapturedPrune] = {}
         self._pool = None
 
     def __len__(self) -> int:
         return len(self._graphs)
 
+    def pool_bytes(self) -> int:
+        """Bytes the set's memory pool holds on the card."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def card_bytes(self) -> int:
+        """The set's static buffers and its pool, in bytes."""
+        return (sum(g.nbytes for g in self._graphs.values())
+                + self.pool_bytes())
+
     def __call__(self, p_ids, cand, cand_d, vecs, alpha: float, R: int):
         nb, c = cand.shape
-        key = (_bucket(nb), c, vecs.shape[2], R, float(alpha))
-        g = self._graphs.get(key)
-        if g is None:
-            g = self._graphs[key] = _CapturedPrune(*key[:3], alpha, R,
-                                                   cand.device, self._pool)
-            self._pool = g.setup.pool()
-        return g(p_ids, cand, cand_d, vecs)
+        key = (_bucket(nb), _lanes(c), vecs.shape[2], R, float(alpha))
+        with _GRAPH_LOCK:
+            g = self._graphs.get(key)
+            if g is None:
+                if self._graphs and self.card_bytes() > self.max_bytes:
+                    self._graphs, self._pool = {}, None
+                    self.resets += 1
+                g = self._graphs[key] = _CapturedPrune(
+                    *key[:3], alpha, R, cand.device, self._pool)
+                self._pool = g.setup.pool()
+                self.captures += 1
+            return g(p_ids, cand, cand_d, vecs)
+
+
+_THREAD = threading.local()
+
+
+def thread_prune_graphs() -> PruneGraphs:
+    """The calling thread's :class:`PruneGraphs`, made on first use: each
+    builder thread (a live index's writer, each fleet worker) replays its
+    own graphs, and no graph is shared across threads."""
+    graphs = getattr(_THREAD, "graphs", None)
+    if graphs is None:
+        graphs = _THREAD.graphs = PruneGraphs()
+    return graphs
 
 
 def robust_prune_batch(
@@ -326,7 +394,6 @@ def robust_prune_batch(
     R: int,
     counter: list,
     vecs: torch.Tensor | None = None,
-    graphs: PruneGraphs | None = None,
 ) -> torch.Tensor:
     """Batched RobustPrune as torch ops on ``data``'s device: ``[B, R]``
     kept ids (int64, -1 padded, compacted to the front of each row).
@@ -340,8 +407,9 @@ def robust_prune_batch(
     ``d(p*, v)`` comes from one ``‖a‖² + ‖b‖² − 2·a·b`` tile per row
     (exact on integer points, like every distance here).  ``vecs``
     optionally holds the ``[B, C, D]`` candidate vectors already gathered.
-    With ``graphs`` (on the card) each chunk replays its shape's CUDA
-    graph: the same ops, so the same kept ids and count.
+    On the card, rows narrow enough (:func:`_graph_rows`) go in chunks
+    that replay the calling thread's CUDA graphs: the same ops over
+    padding that is dead, so the same kept ids and count.
     """
     dev = data.device
     p_ids = torch.as_tensor(p_ids, device=dev).long()
@@ -350,8 +418,10 @@ def robust_prune_batch(
     nb, c = cand.shape
     keep = torch.full((nb, R), -1, dtype=torch.long, device=dev)
     step = _rows_per_chunk(c, data.shape[1])
-    prune = (_prune_rows if graphs is None or dev.type != "cuda"
-             else graphs)
+    prune = _prune_rows
+    g_rows = _graph_rows(c, data.shape[1]) if dev.type == "cuda" else 0
+    if g_rows:
+        step, prune = min(step, g_rows), thread_prune_graphs()
     for lo in range(0, nb, step):
         hi = min(lo + step, nb)
         v = (vecs[lo:hi].float() if vecs is not None
@@ -426,19 +496,16 @@ def _apply_reverse_edges(
     alpha: float,
     R: int,
     counter: list,
-    graphs: PruneGraphs | None = None,
 ) -> None:
     """Grouped reverse-edge update as torch ops on the graph's device:
     every q ∈ pruned[b] gains the edge q → batch[b].  An edge already
     present is skipped; new sources group by destination with one stable
     sort; destinations with room take one scatter into their free tail
     (rows stay compacted), and the destinations that would overflow R are
-    re-pruned together over ``row ∪ new sources``.  The re-prune runs at
-    bucketed shapes, so a build replays a few CUDA graphs (``graphs``)
-    and captures no new one each round: :class:`PruneGraphs` pads a
-    chunk's rows to a power of two, and the width here is ``R +
-    16·⌈max_new/16⌉``, the padding candidate -1 at distance inf.  A padded row has nothing alive and keeps -1; padded
-    lanes are neither kept nor counted."""
+    re-pruned together over ``row ∪ new sources``, ``R + max_new`` lanes
+    wide (-1 padded).  On the card :class:`PruneGraphs` pads the chunk's
+    rows to a power of two and its lanes to a multiple of 16, so a build
+    replays a few CUDA graphs and captures no new one each round."""
     dev = graph.device
     src_p = batch.long().repeat_interleave(pruned.shape[1])
     dst_q = pruned.reshape(-1).long()
@@ -471,7 +538,7 @@ def _apply_reverse_edges(
     if n_ovf == 0:
         return
     max_new = int(cnt_new[~fits].max())
-    width = R + 16 * -(-max_new // 16)
+    width = R + max_new
     cand = torch.full((n_ovf, width), -1, dtype=torch.long, device=dev)
     cand[:, :R] = graph[ovf]
     ovf_pos = torch.full((len(uq),), -1, dtype=torch.long, device=dev)
@@ -489,7 +556,7 @@ def _apply_reverse_edges(
         counter[0] = counter[0] + valid.sum()  # scoring q's candidates
         pruned_q[lo:lo + step] = robust_prune_batch(
             ovf[lo:lo + step], c, cand_d, data, alpha, R, counter,
-            vecs=cvecs, graphs=graphs)
+            vecs=cvecs)
     graph[ovf] = pruned_q.to(graph.dtype)
 
 

@@ -85,8 +85,8 @@ import torch
 
 from repro_torch.configs.base import IndexConfig
 from repro_torch.core.partition import split_shard_rows
-from repro_torch.core.vamana import (PRUNE_CHUNK_BYTES, PruneGraphs,
-                                     _apply_reverse_edges, _rows_per_chunk,
+from repro_torch.core.vamana import (PRUNE_CHUNK_BYTES, _apply_reverse_edges,
+                                     _rows_per_chunk,
                                      build_shard_index_vamana,
                                      robust_prune_batch)
 from repro_torch.device import resolve_device
@@ -190,10 +190,6 @@ class LiveIndex:
         # writer lock: insert/delete/consolidate/save/snapshot serialize
         # here; readers (searches over snapshots) never take it
         self._mutlock = threading.RLock()
-        # the insert rounds' prune graphs on the card, captured once per
-        # shape and replayed by every insert (the lock serializes them)
-        self._prune_graphs = (PruneGraphs() if self.device.type == "cuda"
-                              else None)
         # durable-logging state: attached by the first save()/load();
         # wal_seq counts logged mutations (the manifest's high-water mark
         # plus the replayed/appended tail)
@@ -374,9 +370,10 @@ class LiveIndex:
         round's points (seeded at the shard entry), prunes their pools and
         applies the reverse edges, all on ``device`` tensors uploaded once
         (the graph tensor is the build's live state: no backend caches
-        it); on the card the prunes replay the index's CUDA graphs
-        (:class:`~repro_torch.core.vamana.PruneGraphs`).  Returns the host graph ``[n, max(R, R_old)]`` and the
-        distance count, both read back once."""
+        it); on the card the prunes replay the writer thread's CUDA graphs
+        (:func:`~repro_torch.core.vamana.thread_prune_graphs`).  Returns
+        the host graph ``[n, max(R, R_old)]`` and the distance count, both
+        read back once."""
         from repro_torch.search import beam_pool  # deferred, as in vamana
 
         dev = self.device
@@ -392,7 +389,6 @@ class LiveIndex:
         entry = int(self._entries[s])
         alpha = self.live.alpha
         nb = self.live.batch_size
-        graphs = self._prune_graphs
         for b0 in range(n0, n, nb):
             batch = torch.arange(b0, min(b0 + nb, n), device=dev)
             pool_ids, pool_d, p_stats = beam_pool(
@@ -401,11 +397,10 @@ class LiveIndex:
             )
             counter[0] = counter[0] + p_stats.n_distance_computations
             pruned = robust_prune_batch(batch, pool_ids, pool_d, x, alpha,
-                                        R, counter, graphs=graphs)
+                                        R, counter)
             graph[batch] = -1
             graph[batch, : pruned.shape[1]] = pruned.to(graph.dtype)
-            _apply_reverse_edges(batch, pruned, graph, x, alpha, R, counter,
-                                 graphs)
+            _apply_reverse_edges(batch, pruned, graph, x, alpha, R, counter)
         return graph.cpu().numpy(), int(counter[0])
 
     # ---- mutation: deletes ----------------------------------------------

@@ -8,8 +8,9 @@ graph index is built over each (batch row, KV head)'s cached keys with
 the inner-product metric (:func:`repro_torch.core.build_scalegann`: K1 in
 k-means and the partition, K4 for each shard's CAGRA kNN graph on the
 card), and each decode step queries it through :func:`repro_torch.search.
-search` (``fused``: K3 at one query; ``torch``; ``numpy``, the default,
-the host reference) instead of scoring every key:
+search` (``fused``, the default: K3 at one query; ``torch``; ``numpy``,
+the host reference, the reference package's default) instead of scoring
+every key:
 
     full attention:   O(T·dh) per head per token
     retrieval:        O(width·R·dh) graph search + O((top_t+window)·dh) softmax
@@ -86,7 +87,7 @@ def retrieval_decode_attention(
     width: int = 64,
     scale: float | None = None,
     exact_search: bool = False,  # brute-force top-k (tests/upper bound)
-    backend: str = "numpy",
+    backend: str = "fused",
     n_entries: int = 8,
     device=None,
 ) -> tuple[np.ndarray, dict]:

@@ -3,18 +3,21 @@
 On the card each prune chunk replays CUDA graphs of ``_prune_setup`` and
 of each ``_prune_segment`` of 16 steps, reading between segments whether
 any row is alive, as ``_prune_rows`` does; its rows are padded to a power
-of two (at least 64), and the reverse edges' overflow re-prune runs at a
-width of ``R + 16·⌈max_new/16⌉``, the padding -1 at distance inf.  None of this
-may change a kept id or the distance count:
+of two (at least 64) and its lanes to a multiple of 32, the padding -1 at
+distance inf.  None of this may change a kept id or the distance count:
 
 * every segment run, with no early exit, equals the loop that stops once
   nothing is alive, rows that run out of candidates early and
   all-padding rows included;
 * a prune over bucketed (padded) rows and lanes equals the prune over the
   unpadded ones;
-* ``_apply_reverse_edges`` at bucketed shapes equals the reference's on
-  integer points, for overflow widths on and off the 16-lane grid and
-  for overflowing rows spread over several padded chunks.
+* ``_apply_reverse_edges`` equals the reference's on integer points, for
+  overflow widths on and off the 16-lane grid and for overflowing rows
+  spread over several chunks.
+
+Which chunks replay graphs (narrow rows, cut to a power of two) and how a
+thread's set stays near its byte budget is plain bookkeeping, also
+checked here with a stand-in for the captured graphs.
 """
 
 import numpy as np
@@ -97,8 +100,8 @@ def test_bucket_rounds_rows_up_to_a_power_of_two():
 @pytest.mark.parametrize("max_new", [1, 16, 17, 40])
 def test_reverse_edges_at_bucketed_shapes_match_reference(ints, max_new):
     """Every row full (so every destination overflows), with ``max_new``
-    new sources for one destination: the re-prune's width is R + 16,
-    R + 16, R + 32 and R + 48."""
+    new sources for one destination: on the card the re-prune's lanes
+    round up to 32, 32, 32 and 64 (R = 8)."""
     rng = np.random.default_rng(max_new)
     n, R = len(ints), 8
     graph = jvamana._random_regular_init(n, R, rng)
@@ -145,3 +148,67 @@ def test_reverse_edges_over_several_chunks_match_reference(ints,
     np.testing.assert_array_equal(got_g.numpy(), want_g)
     assert int(got_c[0]) == want_c[0] > 0
     assert (want_g != graph).any(axis=1).sum() > 2 * 64  # several chunks
+
+
+def test_graph_rows_cut_narrow_chunks_to_a_power_of_two():
+    """A round's prune (C = 128) and its overflow re-prune (R + max_new)
+    replay graphs in power-of-two chunks inside the budget; rows so wide
+    that 64 do not fit (consolidation's 2-hop candidates) run eagerly."""
+    D = 128
+    for c in (128, 80, 65, 200):
+        rows = vamana._graph_rows(c, D)
+        lanes = vamana._lanes(c)
+        assert rows >= 64 and rows & (rows - 1) == 0
+        work = 4 * lanes * (lanes + D + 8)
+        assert rows * work <= vamana.PRUNE_GRAPH_CHUNK_BYTES < 2 * rows * work
+    assert vamana._graph_rows(128, D) == 1024
+    assert vamana._graph_rows(2000, D) == 0
+    assert [vamana._lanes(c) for c in (1, 32, 33, 80, 96, 97)] == [
+        32, 32, 64, 96, 96, 128]
+
+
+class _FakeCapture:
+    """Stands in for ``_CapturedPrune`` on the CPU: static bytes, the bytes
+    it adds to the pool, a pool id and the eager prune."""
+
+    made: list = []
+
+    def __init__(self, nb, c, d, alpha, R, dev, pool=None):
+        self.nbytes = nb * c
+        self.in_pool = 2 * nb * c
+        self.setup = type("G", (), {"pool": staticmethod(lambda: (1, 2))})()
+        _FakeCapture.made.append((nb, c))
+
+    def __call__(self, p_ids, cand, cand_d, vecs):
+        return vamana._prune_rows(p_ids, cand, cand_d, vecs, 1.2, 8)
+
+
+def test_prune_graphs_reset_when_past_their_budget(ints, monkeypatch):
+    """A capture that would start past the budget drops every graph and
+    the pool first; replays capture nothing; the ids are the eager
+    loop's throughout."""
+    monkeypatch.setattr(vamana, "_CapturedPrune", _FakeCapture)
+    monkeypatch.setattr(vamana.PruneGraphs, "pool_bytes", lambda self: sum(
+        g.in_pool for g in self._graphs.values()))
+    _FakeCapture.made = []
+    graphs = vamana.PruneGraphs(max_bytes=15000)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(ints)
+
+    def run(nb, c):
+        p, cand, cand_d = _candidates(rng, nb, c, len(ints), ints, 2)
+        want = vamana._prune_rows(p, cand, cand_d, x[cand.clamp_min(0)],
+                                  1.2, 8)
+        got = graphs(p, cand, cand_d, x[cand.clamp_min(0)], 1.2, 8)
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+
+    run(10, 20)  # key (64 rows, 32 lanes): 2048 static + 4096 pool
+    run(40, 30)  # the same key: replayed
+    run(70, 17)  # (128, 32): 6144 before it, within the budget
+    assert _FakeCapture.made == [(64, 32), (128, 32)]
+    assert graphs.card_bytes() == 18432 and graphs.resets == 0
+    run(100, 3)  # (128, 32) replayed, past the budget: no capture
+    run(9, 40)  # (64, 64): 18432 before it, past the budget: a reset
+    assert _FakeCapture.made == [(64, 32), (128, 32), (64, 64)]
+    assert len(graphs) == 1 and graphs.resets == 1 and graphs.captures == 3
+    assert graphs.card_bytes() == 3 * 64 * 64

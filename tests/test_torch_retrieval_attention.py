@@ -165,7 +165,8 @@ def test_retrieval_cost_scales_with_width_not_cache():
         v = rng.normal(size=(b, hkv, t, dh)).astype(np.float32)
         idx = build_key_indexes(k, v, **CPU)
         _, stats = retrieval_decode_attention(q, idx, top_t=16, window=8,
-                                              width=32, **CPU)
+                                              width=32, backend="numpy",
+                                              **CPU)
         counts[t] = stats["n_distance_computations"]
     assert counts[2048] < 4 * counts[512]
 
