@@ -1496,6 +1496,7 @@ def live_path(torch, ds, res, split, recalls):
 
     import numpy as np
 
+    from repro_torch.common import backpressure
     from repro_torch.configs.base import IndexConfig
     from repro_torch.core import vamana
     from repro_torch.data.synthetic import exact_ground_truth, make_clustered
@@ -1638,6 +1639,7 @@ def live_path(torch, ds, res, split, recalls):
                                    overrides=overrides)
                 cap_stats, srv.stats = srv.stats, ServerStats()
                 done, errors = threading.Event(), []
+                backpressure.reset_stats()
                 th = threading.Thread(target=run_writer,
                                       args=(srv, done, errors))
                 t_s = time.perf_counter()
@@ -1683,6 +1685,9 @@ def live_path(torch, ds, res, split, recalls):
             "swaps": len(windows), "rejected_submissions": rejected,
             "failed_futures": failed,
             "responses_with_ids_deleted_before_their_swap": stale,
+            # the writer's yield points that waited for the backlogged
+            # server, and for how long
+            "backpressure": backpressure.stats(),
         }
         log("live serving " + json.dumps(row))
         for w in windows:

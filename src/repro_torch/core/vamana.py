@@ -50,6 +50,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.backpressure import yield_point
 from repro_torch.configs.base import IndexConfig
 from repro_torch.core.cagra import ShardIndex
 from repro_torch.device import resolve_device
@@ -235,6 +236,7 @@ def _prune_rows(p_ids, cand, cand_d, vecs, alpha: float, R: int):
     for t0 in range(0, R, PRUNE_SEGMENT):
         if not bool(st.alive.any()):
             break
+        yield_point()
         _prune_segment(st, t0, min(t0 + PRUNE_SEGMENT, R))
     return keep, count
 
@@ -423,6 +425,7 @@ def robust_prune_batch(
     if g_rows:
         step, prune = min(step, g_rows), thread_prune_graphs()
     for lo in range(0, nb, step):
+        yield_point()  # to a backlogged server in this process
         hi = min(lo + step, nb)
         v = (vecs[lo:hi].float() if vecs is not None
              else data[cand[lo:hi].clamp_min(0)].float())
@@ -650,6 +653,7 @@ def build_shard_index_vamana(
             continue
         s0 = start_off if pi == start_pass else 0
         for s in range(s0, n, nb):
+            yield_point()  # to a backlogged server in this process
             t0 = time.perf_counter()
             before = counted
             m = min(nb, n - s)

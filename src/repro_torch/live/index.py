@@ -83,6 +83,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.common.backpressure import yield_point
 from repro_torch.configs.base import IndexConfig
 from repro_torch.core.partition import split_shard_rows
 from repro_torch.core.vamana import (PRUNE_CHUNK_BYTES, _apply_reverse_edges,
@@ -390,6 +391,7 @@ class LiveIndex:
         alpha = self.live.alpha
         nb = self.live.batch_size
         for b0 in range(n0, n, nb):
+            yield_point()  # to a backlogged server in this process
             batch = torch.arange(b0, min(b0 + nb, n), device=dev)
             pool_ids, pool_d, p_stats = beam_pool(
                 x, graph, entry, x[batch], pool, backend=self.live.backend,
@@ -555,6 +557,7 @@ class LiveIndex:
         count = [torch.zeros((), dtype=torch.long, device=dev)]
         step = max(1, PRUNE_CHUNK_BYTES // (32 * (R + R * R)))
         for lo in range(0, len(fix), step):
+            yield_point()
             rows = fix_t[lo:lo + step]
             g1 = g[rows]
             nd = nd_t[rows]

@@ -184,24 +184,109 @@ def _prep_queries(queries, quant, device):
     if isinstance(quant, QuantSpec):
         if isinstance(queries, torch.Tensor):
             queries = queries.detach().float().cpu().numpy()
-        q = torch.from_numpy(quant.quantize(queries)).to(device)
+        q = _upload(torch.from_numpy(quant.quantize(queries)), device)
         return q, float(np.float32(quant.scale)), float(
             np.float32(quant.zero_point))
-    q = queries if isinstance(queries, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(queries, np.float32))
-    q = q.to(device=device, dtype=torch.float32).contiguous()
+    if isinstance(queries, torch.Tensor):
+        q = queries.to(device=device, dtype=torch.float32)
+    else:
+        q = _upload(torch.from_numpy(
+            np.ascontiguousarray(queries, np.float32)), device)
+    q = q.contiguous()
     if quant == "bf16":
         q = q.to(torch.bfloat16)
     return q, 0.0, 0.0
 
 
-def _prep_entries(entries, width: int, device) -> torch.Tensor:
-    e = np.atleast_1d(np.asarray(entries, np.int64))[:width]
-    return torch.from_numpy(e.astype(np.int32)).to(device)
+def _upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``: to the card through pinned memory,
+    queued on the current stream with no wait for it, so a search's
+    uploads do not wait for the work queued before them."""
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+# entry tensors by (ids, device, point count), uploaded and range-checked
+# once: K3 checks its entries, which reads them back, unless it has seen
+# the same tensor at the same point count before
+_ENTRY_CACHE: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_ENTRY_CAP = 256
+
+
+def _prep_entries(entries, width: int, device, n: int) -> torch.Tensor:
+    e = np.atleast_1d(np.asarray(entries, np.int64))[:width].astype(np.int32)
+    key = (e.tobytes(), str(device), n)
+    with _PREP_LOCK:
+        hit = _ENTRY_CACHE.get(key)
+        if hit is not None:
+            _ENTRY_CACHE.move_to_end(key)
+            return hit
+    t = torch.from_numpy(e).to(device)  # waits: every stream may read it
+    with _PREP_LOCK:
+        _ENTRY_CACHE[key] = t
+        while len(_ENTRY_CACHE) > _ENTRY_CAP:
+            _ENTRY_CACHE.popitem(last=False)
+    return t
 
 
 def _sum(t: torch.Tensor, n_real: int | None = None) -> int:
     return int(t[:n_real].sum())
+
+
+def _to_host(*ts: torch.Tensor) -> list:
+    """Copies of ``ts`` on the host, queued on the current stream without
+    a wait: they hold their values once that stream is synchronized."""
+    return [t.to("cpu", non_blocking=t.is_cuda) for t in ts]
+
+
+def _launch(
+    data, graph, entries, queries, k: int, *, width: int = 64,
+    n_iters: int | None = None, expand: int = _beam.DEFAULT_EXPAND,
+    metric: str = "l2", n_real: int | None = None, quant=None,
+    device: torch.device,
+):
+    """:func:`fused_beam_search` queued: K3 and the copies of its results
+    to the host go on the current stream, and the returned ``finish()``
+    gives the search's result once that stream has been synchronized.  So
+    a split search queues every shard's search and waits once
+    (:func:`~repro_torch.search.types.run_split`).  A build's live state
+    is searched and read at once, as :func:`fused_beam_search` does."""
+    n_iters = _beam.default_n_iters(width) if n_iters is None else n_iters
+    prep = _prepared(data, graph, quant, device)
+    q, scale, zp = _prep_queries(queries, quant, device)
+    ids, ds, n_dist, hops, _ = _beam.fused_beam(
+        prep.x, prep.graph,
+        _prep_entries(entries, width, device, prep.x.shape[0]), q, k,
+        width=width, n_iters=n_iters, expand=expand, metric=metric,
+        scale=scale, zp=zp, aux=prep.aux,
+    )
+    staged = quant is not None
+    if is_live(graph):
+        nd = _sum(n_dist, n_real)
+        stats = SearchStats(
+            n_distance_computations=nd, n_hops=_sum(hops, n_real),
+            n_quantized_distance_computations=nd if staged else 0,
+        )
+        return lambda: (ids.long(), ds, stats)
+    host = _to_host(ids, ds, n_dist[:n_real].sum(), hops[:n_real].sum())
+
+    def finish():
+        ids_h, ds_h, nd, n_hops = host
+        nd = int(nd)
+        return (ids_h.numpy().astype(np.int64), ds_h.numpy(), SearchStats(
+            n_distance_computations=nd, n_hops=int(n_hops),
+            n_quantized_distance_computations=nd if staged else 0,
+        ))
+
+    return finish
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the current stream: the results :func:`_launch` queued
+    are then on the host."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def fused_beam_search(
@@ -213,23 +298,12 @@ def fused_beam_search(
     """The beam_fn protocol over the fused engine: stats summed over the
     first ``n_real`` queries (all when None).  numpy in, numpy out; a
     build's live state in (:func:`is_live`), tensors out on ``device``."""
-    n_iters = _beam.default_n_iters(width) if n_iters is None else n_iters
-    prep = _prepared(data, graph, quant, device)
-    q, scale, zp = _prep_queries(queries, quant, device)
-    ids, ds, n_dist, hops, _ = _beam.fused_beam(
-        prep.x, prep.graph, _prep_entries(entries, width, device), q, k,
-        width=width, n_iters=n_iters, expand=expand, metric=metric,
-        scale=scale, zp=zp, aux=prep.aux,
-    )
-    nd = _sum(n_dist, n_real)
-    stats = SearchStats(
-        n_distance_computations=nd,
-        n_hops=_sum(hops, n_real),
-        n_quantized_distance_computations=nd if quant is not None else 0,
-    )
-    if is_live(graph):
-        return ids.long(), ds, stats
-    return (ids.cpu().numpy().astype(np.int64), ds.cpu().numpy(), stats)
+    finish = _launch(data, graph, entries, queries, k, width=width,
+                     n_iters=n_iters, expand=expand, metric=metric,
+                     n_real=n_real, quant=quant, device=device)
+    if not is_live(graph):
+        sync(device)
+    return finish()
 
 
 def _fused_merged_staged(topo: MergedTopology, entries, queries, k: int,
@@ -247,7 +321,8 @@ def _fused_merged_staged(topo: MergedTopology, entries, queries, k: int,
     q, scale, zp = _prep_queries(queries, quant, device)
     qf = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(device)
     ids, _, n_dist, hops, n_rr = _beam.fused_beam(
-        prep.x, prep.graph, _prep_entries(entries, width, device), q, kq,
+        prep.x, prep.graph,
+        _prep_entries(entries, width, device, prep.x.shape[0]), q, kq,
         width=width, n_iters=n_iters, metric=topo.metric, scale=scale, zp=zp,
         x_exact=exact.x, q_exact=qf, rerank_k=k, aux=prep.aux,
     )
@@ -263,6 +338,9 @@ def _fused_merged_staged(topo: MergedTopology, entries, queries, k: int,
 
 # run_merged hands staged merged searches back through this hook
 fused_beam_search.fused_merged = _fused_merged_staged
+# run_split queues every probed shard's search, then waits once
+fused_beam_search.launch = _launch
+fused_beam_search.sync = sync
 
 # raw batched-beam hook for build-time searches (`beam_pool`)
 beam_fn = fused_beam_search

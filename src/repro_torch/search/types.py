@@ -807,6 +807,10 @@ def run_split(beam_fn, topo: ShardTopology, queries, k: int, *,
         f32_store = topo.shard_store()  # cached: stable storage identity
     pool_ids = np.full((nq, n_probe, kq), -1, np.int64)
     pool_d = np.full((nq, n_probe, kq), np.inf, np.float32)
+    # a beam_fn with ``launch`` (the fused engine) queues each shard's
+    # search and its copies to the host; one wait then covers them all
+    launch = getattr(beam_fn, "launch", None)
+    queued = []
     for p, s in enumerate(live):
         qrows, slots = np.nonzero(probes == p)
         m = qrows.size
@@ -823,13 +827,18 @@ def run_split(beam_fn, topo: ShardTopology, queries, k: int, *,
             quant_kw = {"quant": spec if spec is not None else dtype}
         else:
             store, quant_kw = f32_store[s], {}
-        local, ld, s_stats = beam_fn(
-            store, topo.shard_graphs[s],
-            int(entries[s]), queries[use_rows], min(kq, len(ids)),
-            width=width, n_iters=n_iters, metric=topo.metric,
-            n_real=m if use_rows is not qrows else None, device=device,
-            **quant_kw,
-        )
+        args = (store, topo.shard_graphs[s], int(entries[s]),
+                queries[use_rows], min(kq, len(ids)))
+        kw = dict(width=width, n_iters=n_iters, metric=topo.metric,
+                  n_real=m if use_rows is not qrows else None,
+                  device=device, **quant_kw)
+        run = beam_fn if launch is None else launch
+        queued.append((qrows, slots, ids, run(*args, **kw)))
+    if launch is not None:
+        beam_fn.sync(device)
+    for qrows, slots, ids, res in queued:
+        local, ld, s_stats = res() if launch is not None else res
+        m = qrows.size
         stats += s_stats
         local, ld = pad_pool(local[:m], ld[:m], kq)
         gids = np.where(local >= 0, ids[np.maximum(local, 0)], -1)

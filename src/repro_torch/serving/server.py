@@ -34,6 +34,7 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.common import backpressure
 from repro_torch.device import resolve_device
 from repro_torch.search import (DEFAULT_RERANK, as_topology, get_backend,
                                 parse_dtype, parse_nprobe, search)
@@ -343,10 +344,13 @@ class AnnServer:
             raise
         if shed is not None:
             self.stats.record_shed()
+        depth = self._queue.depth()
+        if depth > 2 * self.config.max_batch:
+            # behind by more than two batches: background work in this
+            # process (a live index's rounds) waits until we catch up
+            backpressure.press(self)
         # retune the open batch's window from the new depth
-        self._batcher.max_wait_s = (
-            self.policy.window_ms(self._queue.depth()) / 1e3
-        )
+        self._batcher.max_wait_s = self.policy.window_ms(depth) / 1e3
         return fut
 
     async def submit(self, query: np.ndarray, *,
@@ -375,6 +379,8 @@ class AnnServer:
             self._inflight = []
             self.stats.record_failed(n)
             raise
+        finally:
+            backpressure.release(self)
 
     async def _serve_loop(self) -> None:
         # The engine runs in an executor thread: K3, K1 and K2 launch there
@@ -394,6 +400,8 @@ class AnnServer:
         self._sig_guard.finish_warmup()
         while True:
             batch = await self._queue.next_batch()
+            if self._queue.depth() <= self.config.max_batch:
+                backpressure.release(self)  # caught up (or closing)
             if batch is None:
                 return
             t_flush = self.clock()
