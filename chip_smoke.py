@@ -176,7 +176,7 @@
    selection of every key equal to full attention to 1e-4 x max; the
    ``fused`` ids on the card equal to the CPU ``torch`` backend's (a
    differing id must be a near-tie); K1, K3 and K4 launched.
-15. Training phase (last), counters zeroed just before the timed steps and
+15. Training phase, counters zeroed just before the timed steps and
    read just after: the TinyLlama and kimi smoke configs' f32 gradients
    on the card against the CPU's (1e-4 x max|g| a leaf); TinyLlama-1.1B
    at full width, bf16 trainable parameters, ``remat="full"``, AdamW,
@@ -189,6 +189,38 @@
    backward's share).  Gates: finite losses falling from the first step
    to the last, finite grad norms, K5 launched 22 times a forward and 22
    a recompute, a checkpoint saved on the card restoring equal.
+16. Launch phase (last).  First the port's whole dry-run in-process
+   (``repro_torch.launch.dryrun``, its cells counted in 6 processes on the
+   host, on the meta device): 40 cells on both production meshes, one
+   ``dryrun cell`` line per counted cell and one ``dryrun {...}`` line
+   (ok / skipped / error rows, seconds); gates: 0 errors, 64 ok rows and
+   8 skips, all ``long_500k`` of the full-attention families.  Then the
+   dry-run's cells that fit one H100, at full width with seeded random
+   weights in bf16, each cut on a ``CUT`` line and its device bytes
+   reckoned before it runs: TinyLlama-1.1B x decode_32k (batch 64, K6 at
+   T = 32,768), x prefill_32k (batch 8, K5 at S = T = 32,768) and x
+   train_4k (global batch 32 in 4 microbatches of 8, remat=full, AdamW;
+   1 warm step, 1 timed), rwkv6-1.6B x long_500k and jamba-v0.1 x
+   long_500k (8 of 32 layers, K6 at T = 524,288).  Decode cells start
+   from a cache of seeded random values (``seq_len - 1`` tokens held)
+   and time ``serve_step_fn`` at ``pos = seq_len - 1``; prefill and decode
+   cells time 5 calls after a warm one (the median).  One ``launch cell
+   {...}`` line each: step ms, the ``step_cost`` count of the cut step
+   (FLOPs and the eager program's op-level bytes), the bound max(FLOPs /
+   989e12, least bytes / 3.35e12) with least bytes the weights, caches
+   and state read once and the outputs written once, its share of the
+   step, reckoned and peak GB, K5 / K6 launches.  Gates: finite logits
+   and loss, K6 launched (attention layers) x (steps) in the decode
+   cells, K5 (layers) x (calls) in prefill and 2 x (layers) x
+   (microbatches) in the train step, every step >= 0.95 x its bound.  K6
+   against its plain version at T = 32,768 and T = 524,288 over a whole
+   call; K5 at the prefill cell's layer shape q [8,32,32768,64] on the
+   last 512 query rows of every sequence; K5 with its lse at the train
+   cell's q [8,32,4096,64] on every sequence, and the FA2 backward there
+   on two sequences (5e-2 x max |g|).  The bf16 outputs are held both to
+   8e-3 and to 8e-3 x their largest magnitude (they average thousands of
+   random rows and are far below 1).  K5 and K6 are timed beside SDPA with
+   their bounds.
 
 Prints one ``{"kernels": [...]}`` line, then the card's line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero on any
@@ -2514,6 +2546,19 @@ def allclose_err(torch, got, want, tol: float) -> float:
 TOL = {"bfloat16": 8e-3, "float32": 1e-5}
 
 
+def scaled_err(torch, got, want, tol: float) -> tuple:
+    """:func:`allclose_err` and, besides it, max |got - want| <= tol x
+    max |want|: an output that averages thousands of random rows is far
+    smaller than 1, and a bound in absolute terms alone would pass a kernel
+    that returned zeros or skipped part of the keys.  Returns (max |err|,
+    max |want|)."""
+    err = allclose_err(torch, got, want, tol)
+    top = float(want.float().abs().max())
+    need(top > 0 and err <= tol * top,
+         f"max |err| {err:.3e} beyond {tol} x max |want| {top:.3e}")
+    return err, top
+
+
 def check_k5(torch, rows, waves):
     """K5 at the main path's wave shapes ``waves`` [(batch, prompt_len)]
     (ragged last tiles), at the shapes that reach its other paths (head
@@ -3480,6 +3525,498 @@ def train_path(torch):
     return {"flash_attention": launches}
 
 
+# ---------------------------------------------------------------------------
+# Step 16: the launch phase
+# ---------------------------------------------------------------------------
+
+LAUNCH_JOBS = 6  # dry-run cells counted at once (the host has 8 cores)
+LAUNCH_STEPS = 5  # timed steps of a prefill or decode cell (the median)
+
+
+def launch_dryrun(torch) -> None:
+    """The port's whole dry-run in-process (its cells counted in
+    ``LAUNCH_JOBS`` processes on the host): 40 cells on both production
+    meshes, 32 counted and 8 skipped, with 0 errors."""
+    from repro_torch.configs.base import SUBQUADRATIC_FAMILIES, get_arch
+    from repro_torch.launch import dryrun
+
+    out = ROOT / "build" / "dryrun_results.json"
+    out.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--out", str(out), "--quiet", "--jobs",
+                      str(LAUNCH_JOBS)])
+    secs = time.perf_counter() - t0
+    rows = json.loads(out.read_text())
+    status = collections.Counter(r["status"] for r in rows)
+    skipped = [(r["arch"], r["shape"]) for r in rows
+               if r["status"] == "skipped"]
+    for r in rows:
+        if r["status"] == "ok" and r["mesh"] == "single":
+            multi = next(m for m in rows if m["status"] == "ok"
+                         and m["mesh"] == "multi" and m["arch"] == r["arch"]
+                         and m["shape"] == r["shape"])
+            log(f"dryrun cell {r['arch']} {r['shape']} {r['kind']} "
+                f"flops={r['flops']:.4e} bytes={r['bytes_accessed']:.4e} "
+                f"argument_bytes/device single={r['memory']['argument_bytes']}"
+                f" multi={multi['memory']['argument_bytes']} "
+                f"count_s={r['analyze_s']}")
+    cells = len({(r["arch"], r["shape"]) for r in rows})
+    log("dryrun " + json.dumps({
+        "cells": cells, "ok": status["ok"], "skipped": status["skipped"],
+        "errors": status["error"], "seconds": round(secs, 3),
+        "jobs": LAUNCH_JOBS}))
+    need(rc == 0 and status["error"] == 0,
+         f"the dry-run gave {status['error']} error rows (rc {rc})")
+    need(cells == 40 and status["ok"] == 64 and len(skipped) == 8,
+         f"the dry-run gave {status['ok']} ok rows and {len(skipped)} skips "
+         f"over {cells} cells, not 64 and 8 over 40")
+    need(all(s == "long_500k" and get_arch(a).family
+             not in SUBQUADRATIC_FAMILIES for a, s in skipped),
+         f"the dry-run skipped {skipped}")
+
+
+def step_times(torch, fn, n: int) -> list:
+    """Device time of each of ``n`` calls of ``fn`` (CUDA events around
+    each call, which wait on the card)."""
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def tensors_bytes(*trees) -> int:
+    """Bytes of the tensors in trees of them (``params.leaves``) and of
+    modules' parameters."""
+    from torch import nn
+
+    from repro_torch.common import params as par
+
+    return sum(t.numel() * t.element_size() for leaf in par.leaves(trees)
+               for t in (leaf.parameters() if isinstance(leaf, nn.Module)
+                         else [leaf]) if hasattr(t, "element_size"))
+
+
+def randomize_cache(torch, cache, seed: int) -> None:
+    """Every cache leaf refilled in place with seeded normal values (a
+    ``seq_len - 1``-token history to decode the next token against)."""
+    from repro_torch.common import params as par
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for leaf in par.leaves(cache):
+        leaf.normal_(generator=gen)
+
+
+def launch_report(torch, arch, shape_id, cost, ms_list, least_bytes,
+                  reckoned, peak, launches, **extra) -> dict:
+    """One ``launch cell {...}`` line and the gate on the bound."""
+    import statistics
+
+    ms = statistics.median(ms_list)
+    t_ops = cost["flops"] / H100_BF16_FLOPS * 1e3
+    t_bytes = least_bytes / H100_HBM_BYTES * 1e3
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                           "operations")
+    row = {"arch": arch, "shape": shape_id, "step_ms": ms,
+           "step_ms_each": ms_list, "flops": cost["flops"],
+           "least_bytes": least_bytes,
+           "eager_op_bytes": cost["bytes"], "bound_ms": bnd,
+           "bound_by": by, "bound_share": bnd / ms,
+           "reckoned_gb": reckoned / 1e9, "peak_gb": peak / 1e9,
+           "k5_launches": launches["flash_attention"],
+           "k6_launches": launches["flash_decode"], **extra}
+    log("launch cell " + json.dumps(row))
+    need(ms >= 0.95 * bnd, f"{arch} x {shape_id}: {ms:.3f} ms is below "
+         f"0.95 x its counted bound {bnd:.3f} ms: the count is wrong")
+    return row
+
+
+def count_cut(cfg, shape):
+    """The step_cost count of a cell at its cut shape (on meta)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as lspecs
+
+    cost, _, secs = dryrun.count_step(lspecs.make_cell(cfg, shape), cfg,
+                                      shape)
+    return cost, secs
+
+
+def check_k6_long(torch, what, q, kc, vc, lens, fill):
+    """K6 over a whole call against its plain version (bf16, 8e-3, and
+    max |err| <= 8e-3 x max |want|: each output averages ``fill`` random V
+    rows; the plain version 8 rows at a time: it broadcasts V over each
+    GQA group, 17 GB at once for 64 rows of 32,768 keys), timed beside
+    SDPA with its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (decode_plan,
+                                                     flash_decode_cuda,
+                                                     flash_decode_plain)
+
+    b, h, dh = q.shape
+    hkv, t = kc.shape[1], kc.shape[2]
+    rows = 8
+
+    def plain():
+        return torch.cat([flash_decode_plain(q[i:i + rows], kc[i:i + rows],
+                                             vc[i:i + rows], lens[i:i + rows])
+                          for i in range(0, b, rows)])
+
+    err, top = scaled_err(torch, flash_decode_cuda(q, kc, vc, lens),
+                          plain(), TOL["bfloat16"])
+    ms = events_ms(torch, lambda: flash_decode_cuda(q, kc, vc, lens),
+                   reps=10)
+    plain_ms = events_ms(torch, plain, reps=1)
+    mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+    lib = events_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :],
+        enable_gqa=True), reps=10)
+    total = b * fill
+    bnd, by = bound_ms(2 * (2 * hkv * total * dh) + 2 * 2 * q.numel(),
+                       4 * h * dh * total, H100_FP32_FLOPS)
+    chunk, n_split = decode_plan(b, hkv, t, dh, 2)
+    log(f"K6 bf16 {what} q[{b},{h},{dh}] cache[{b},{hkv},{t},{dh}] "
+        f"lens={fill} chunk={chunk} splits={n_split} max_abs_err={err:.3e} "
+        f"max_abs_want={top:.3e} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib:.4f} "
+        f"bound_ms={bnd:.4f} ({by}) share={bnd / ms:.3f}")
+
+
+def check_k5_long(torch, g):
+    """K5 at the prefill_32k cell's layer shape, q [8,32,32768,64] and k/v
+    [8,4,32768,64], causal: the last 512 query rows of every sequence of
+    one launch against the plain version, one sequence at a time, with the
+    causal offset (bf16, 8e-3, and max |err| <= 8e-3 x max |want|: those
+    rows average ~32k random V rows); then timed beside SDPA with its
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    b, h, hkv, s, dh, held = 8, 32, 4, 32768, 64, 512
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).bfloat16()
+
+    q, k, v = rand(b, h, s, dh), rand(b, hkv, s, dh), rand(b, hkv, s, dh)
+    got = flash_attention_cuda(q, k, v, causal=True)[:, :, -held:]
+
+    def plain(i):
+        return flash_attention_plain(q[i:i + 1, :, -held:], k[i:i + 1],
+                                     v[i:i + 1], causal=True)
+
+    errs = [scaled_err(torch, got[i:i + 1], plain(i), TOL["bfloat16"])
+            for i in range(b)]
+    plain_ms = events_ms(torch, lambda: plain(0), reps=3)
+    err = max(e for e, _ in errs)
+    top = min(t for _, t in errs)
+    log(f"K5 bfloat16 S=T={s} q[{b},{h},{s},{dh}] kv[{b},{hkv},{s},{dh}]: "
+        f"the last {held} rows of each sequence against the plain version "
+        f"(causal offset {s - held}) max_abs_err={err:.3e} "
+        f"min_max_abs_want={top:.3e} plain_ms={plain_ms:.4f} (one "
+        f"sequence's held rows)")
+    del got
+    ms = events_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
+                   reps=3)
+    lib = events_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=3)
+    bnd, by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()),
+                       4 * b * h * dh * s * (s + 1) / 2, H100_BF16_FLOPS)
+    log(f"K5 bfloat16 prefill_32k layer q[{b},{h},{s},{dh}] "
+        f"kv[{b},{hkv},{s},{dh}] causal ms={ms:.3f} sdpa_ms={lib:.3f} "
+        f"bound_ms={bnd:.3f} ({by}) share={bnd / ms:.3f}")
+    del q, k, v
+
+
+def check_k5_train(torch, g):
+    """K5 with its log-sum-exp at the train_4k cell's layer shape, q
+    [8,32,4096,64] and k/v [8,4,4096,64], causal, and the FA2 backward on
+    its residuals: the output (bf16, 8e-3, and 8e-3 x max |want|) and the
+    lse (f32, 1e-4) of every sequence against the plain version, one
+    sequence at a time; dq, dk and dv of the first and the last sequence
+    against the plain version's autograd (5e-2 x max |g|, as step 15)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_lse_cuda, flash_attention_lse_plain,
+        flash_attention_plain)
+    from repro_torch.kernels.flash_vjp import flash_attention_bwd
+
+    b, h, hkv, s, dh = 8, 32, 4, 4096, 64
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).bfloat16()
+
+    q, k, v = rand(b, h, s, dh), rand(b, hkv, s, dh), rand(b, hkv, s, dh)
+    out, lse = flash_attention_lse_cuda(q, k, v, causal=True)
+    err = lse_err = 0.0
+    for i in range(b):
+        want, want_lse = flash_attention_lse_plain(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True)
+        err = max(err, scaled_err(torch, out[i:i + 1], want,
+                                  TOL["bfloat16"])[0])
+        lse_err = max(lse_err, allclose_err(torch, lse[i:i + 1], want_lse,
+                                            1e-4))
+    dout = rand(b, h, s, dh)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                scale=dh**-0.5)
+    worst = 0.0
+    for i in (0, b - 1):
+        leaves = [x[i:i + 1].detach().clone().requires_grad_()
+                  for x in (q, k, v)]
+        o = flash_attention_plain(*leaves, causal=True)
+        want = torch.autograd.grad(o, leaves, dout[i:i + 1])
+        for name, got_g, want_g in zip("qkv", grads, want):
+            d = float((got_g[i:i + 1].float() - want_g.float()).abs().max())
+            top = float(want_g.float().abs().max())
+            need(bool(torch.isfinite(got_g).all()) and top > 0
+                 and d <= 5e-2 * top,
+                 f"FA2 d{name} of sequence {i} at [8,32,4096,64]: max |err| "
+                 f"{d:.3e} beyond 5e-2 x max |g| {top:.3e}")
+            worst = max(worst, d / top)
+    log(f"K5 bfloat16 train_4k layer q[{b},{h},{s},{dh}] kv[{b},{hkv},{s},"
+        f"{dh}] causal with lse: every sequence against the plain version "
+        f"max_abs_err={err:.3e} lse max_abs_err={lse_err:.3e}; FA2 backward "
+        f"of sequences 0 and {b - 1} against autograd of the plain version: "
+        f"max |err| / max |g| = {worst:.3e}")
+    del q, k, v, out, lse, dout, grads
+
+
+def launch_decode_cell(torch, arch, cfg, shape, seed):
+    """A decode cell on the card: the model at full width in bf16, a
+    cache of seeded random values (``seq_len - 1`` tokens held), one warm
+    step then ``LAUNCH_STEPS`` timed steps of ``serve_step_fn`` at
+    ``pos = seq_len - 1``.  Returns (report row, params, cache)."""
+    from repro_torch.kernels import LAUNCHES, reset_counts
+    from repro_torch.models.model import build_model, layer_plan
+    from repro_torch.serve import serve_step_fn
+
+    plans = layer_plan(cfg)
+    attn = sum(plans[i % len(plans)].mixer == "attn"
+               for i in range(cfg.n_layers))
+    lm = build_model(cfg)
+    b, t = shape.global_batch, shape.seq_len
+    kv = attn * 2 * b * cfg.n_kv_heads * t * cfg.resolved_head_dim * 2
+    reckoned = kv + 2 * lm.n_params
+    log(f"launch {arch} x {shape.name} reckoned device bytes: KV cache "
+        f"{kv / 1e9:.2f} GB ({attn} attention layers x 2 x {b} x "
+        f"{cfg.n_kv_heads} x {t} x {cfg.resolved_head_dim} x 2 B) + "
+        f"weights {2 * lm.n_params / 1e9:.2f} GB = {reckoned / 1e9:.2f} GB")
+    cost, count_s = count_cut(cfg, shape)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(seed=seed, dtype=torch.bfloat16)
+    cache = lm.init_cache_fn(b, t, torch.bfloat16)
+    randomize_cache(torch, cache, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b,), device="cuda",
+                           generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = serve_step_fn(lm)
+    out = {}
+
+    def run():
+        out["logits"], _ = step(params, cache, tokens, t - 1)
+
+    with torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+        reset_counts()
+        ms = step_times(torch, run, LAUNCH_STEPS)
+        launches = dict(LAUNCHES)
+    need(bool(torch.isfinite(out["logits"]).all()),
+         f"{arch} x {shape.name}: non-finite logits")
+    need(launches["flash_decode"] == attn * LAUNCH_STEPS
+         and launches["flash_attention"] == 0,
+         f"{arch} x {shape.name}: K6 launched {launches['flash_decode']} "
+         f"times in {LAUNCH_STEPS} steps, not {attn} x {LAUNCH_STEPS}")
+    written = out["logits"].numel() * 2 + attn * 2 * b * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * 2
+    least = tensors_bytes(params, cache) + tokens.numel() * 8 + written
+    row = launch_report(torch, arch, shape.name, cost, ms, least, reckoned,
+                        torch.cuda.max_memory_allocated(), launches,
+                        init_s=init_s, count_s=count_s)
+    return row, launches, params, cache
+
+
+def launch_path(torch):
+    """Step 16: the dry-run, then its cells that fit one H100 at full
+    width on the card (module docstring).  Returns the K5 / K6 launches
+    of the cells' timed steps."""
+    import gc
+
+    from repro_torch.configs.base import SHAPES, get_arch
+    from repro_torch.kernels import LAUNCHES, reset_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.train import (TrainConfig, adamw, init_train_state,
+                                   make_train_step)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_dryrun(torch)
+    total = collections.Counter()
+    g = torch.Generator(device="cuda").manual_seed(16)
+
+    # tinyllama x decode_32k: K6 at T = 32,768
+    cfg = get_arch("tinyllama_1_1b")
+    shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=64)
+    log("CUT: tinyllama_1_1b x decode_32k batch 64 instead of 128 (a 32k "
+        "KV cache is 738 MB a sequence: 94.5 GB at 128, 47.2 GB at 64 on "
+        "an 80 GB card); full depth and width")
+    _, launches, params, cache = launch_decode_cell(torch, "tinyllama_1_1b",
+                                                    cfg, shape, 21)
+    total.update(launches)
+    kc, vc = cache["layers"][0]["k"], cache["layers"][0]["v"]
+    q = torch.randn(64, cfg.n_heads, cfg.resolved_head_dim, device="cuda",
+                    generator=g).bfloat16()
+    lens = torch.full((64,), shape.seq_len, dtype=torch.int32, device="cuda")
+    check_k6_long(torch, "decode_32k", q, kc, vc, lens, shape.seq_len)
+    del cache, kc, vc, q
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # tinyllama x prefill_32k: K5 at S = T = 32,768
+    shape = dataclasses.replace(SHAPES["prefill_32k"], global_batch=8)
+    log("CUT: tinyllama_1_1b x prefill_32k batch 8 instead of 32 (the "
+        "shape's own microbatch); full depth and width")
+    b, s = shape.global_batch, shape.seq_len
+    kv = cfg.n_layers * 2 * b * cfg.n_kv_heads * s * cfg.resolved_head_dim * 2
+    act = b * s * cfg.d_model * 2
+    mlp = b * s * cfg.d_ff * 2
+    reckoned = kv + 2 * build_model(cfg).n_params + 3 * act + 4 * mlp
+    log(f"launch tinyllama_1_1b x prefill_32k reckoned device bytes: cache "
+        f"{kv / 1e9:.2f} GB, a layer's x {act / 1e9:.2f} GB, an MLP product "
+        f"{mlp / 1e9:.2f} GB (its f32 SiLU twice that), weights "
+        f"{tensors_bytes(params) / 1e9:.2f} GB: ~{reckoned / 1e9:.1f} GB")
+    cost, count_s = count_cut(cfg, shape)
+    lm = build_model(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=g)
+    out = {}
+
+    def prefill():
+        out["logits"], out["cache"] = lm.prefill_fn(params, {"tokens": tokens},
+                                                    s)
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        prefill()
+        torch.cuda.synchronize()
+        reset_counts()
+        ms = step_times(torch, prefill, LAUNCH_STEPS)
+        launches = dict(LAUNCHES)
+    need(bool(torch.isfinite(out["logits"]).all()),
+         "tinyllama_1_1b x prefill_32k: non-finite logits")
+    need(launches["flash_attention"] == cfg.n_layers * LAUNCH_STEPS,
+         f"prefill_32k: K5 launched {launches['flash_attention']} times, not "
+         f"{cfg.n_layers} x {LAUNCH_STEPS}")
+    total.update(launches)
+    least = (tensors_bytes(params) + tokens.numel() * 8
+             + out["logits"].numel() * 2 + tensors_bytes(out["cache"]))
+    launch_report(torch, "tinyllama_1_1b", "prefill_32k", cost, ms, least,
+                  reckoned, torch.cuda.max_memory_allocated(), launches,
+                  count_s=count_s)
+    out.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_k5_long(torch, g)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # tinyllama x train_4k: K5 + the FA2 backward at S = 4,096
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=32,
+                                microbatch=8)
+    log("CUT: tinyllama_1_1b x train_4k global batch 32 instead of 256, "
+        "microbatch 8 instead of 32 (4 accumulations; the f32 logits of a "
+        "32 x 4,096 microbatch and their gradient alone are 33.6 GB); full "
+        "depth, remat=full, AdamW, bf16 parameters; 1 warm step, 1 timed")
+    b, s, mb = shape.global_batch, shape.seq_len, shape.microbatch
+    n_params = build_model(cfg).n_params
+    state_b = 2 * n_params + 8 * n_params  # bf16 weights, f32 mu and nu
+    logits_b = mb * s * 32000 * 4
+    remat_b = cfg.n_layers * mb * s * cfg.d_model * 2
+    reckoned = state_b + 4 * n_params + 3 * logits_b + remat_b
+    log(f"launch tinyllama_1_1b x train_4k reckoned device bytes: state "
+        f"{state_b / 1e9:.1f} GB (bf16 weights, f32 moments), f32 gradient "
+        f"sum {4 * n_params / 1e9:.1f} GB, remat boundaries "
+        f"{remat_b / 1e9:.2f} GB, f32 logits {logits_b / 1e9:.1f} GB with "
+        f"their gradient: ~{reckoned / 1e9:.1f} GB")
+    cost, count_s = count_cut(cfg, shape)
+    lm = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(seed=22, dtype=torch.bfloat16, requires_grad=True)
+    opt, tcfg = adamw(), TrainConfig(microbatch=mb)
+    holder = {"state": init_train_state(lm, opt, tcfg=tcfg, params=params)}
+    step = make_train_step(lm, opt, tcfg)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                         generator=g)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def train():
+        holder["state"], holder["metrics"] = step(holder["state"], batch)
+
+    train()
+    torch.cuda.synchronize()
+    reset_counts()
+    ms = step_times(torch, train, 1)
+    launches = dict(LAUNCHES)
+    loss = float(holder["metrics"]["loss"])
+    need(torch.isfinite(torch.tensor(loss)).item(), f"train_4k loss {loss}")
+    want_k5 = (b // mb) * 2 * cfg.n_layers
+    need(launches["flash_attention"] == want_k5,
+         f"train_4k: K5 launched {launches['flash_attention']} times, not "
+         f"{want_k5} (forward + remat recompute, {b // mb} microbatches)")
+    total.update(launches)
+    st = holder["state"]
+    least = 2 * tensors_bytes(params, st.opt_state) + 2 * toks.numel() * 8
+    launch_report(torch, "tinyllama_1_1b", "train_4k", cost, ms, least,
+                  reckoned, torch.cuda.max_memory_allocated(), launches,
+                  loss=loss, count_s=count_s)
+    del holder, st, params, step, batch, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_k5_train(torch, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # rwkv6 x long_500k: the recurrent state, no kernel of the repo's
+    cfg = get_arch("rwkv6_1_6b")
+    shape = SHAPES["long_500k"]
+    _, launches, params, cache = launch_decode_cell(torch, "rwkv6_1_6b", cfg,
+                                                    shape, 23)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # jamba x long_500k, one period of 8 layers: K6 at T = 524,288
+    full = get_arch("jamba_v0_1_52b")
+    cfg = dataclasses.replace(full, n_layers=8)
+    log(f"CUT: jamba_v0_1_52b x long_500k n_layers=8 instead of "
+        f"{full.n_layers} (one period: 7 Mamba layers, 1 attention, 4 MoE; "
+        "all 32 layers are 104 GB in bf16); batch 1, full width")
+    _, launches, params, cache = launch_decode_cell(
+        torch, "jamba_v0_1_52b", cfg, shape, 24)
+    total.update(launches)
+    lc = next(c for c in cache["layers"] if "k" in c)
+    q = torch.randn(1, cfg.n_heads, cfg.resolved_head_dim, device="cuda",
+                    generator=g).bfloat16()
+    lens = torch.full((1,), shape.seq_len, dtype=torch.int32, device="cuda")
+    check_k6_long(torch, "long_500k", q, lc["k"], lc["v"], lens,
+                  shape.seq_len)
+    del params, cache, lc, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"launch phase body {time.perf_counter() - t_phase:.3f} s")
+    return {name: total[name] for name in LM_KERNELS}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -3590,6 +4127,10 @@ def main(argv=None) -> int:
     for name, count in train_path(torch).items():
         rows[name]["launches"] += count
     log(f"training phase {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    for name, count in launch_path(torch).items():
+        rows[name]["launches"] += count
+    log(f"launch phase {time.perf_counter() - t0:.3f} s")
     log(f"total {time.perf_counter() - t_start:.3f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,7 +2,11 @@
 
 A model declares its parameters as a nested dict (and list) of :class:`P`
 leaves, each a (shape, logical axes, init rule, dtype) record.  From that
-one declaration come the concrete tensors (:func:`init_params`) and the
+one declaration come the concrete tensors (:func:`init_params`), tensors
+on the ``meta`` device that allocate nothing (:func:`abstract_params`, the
+counterpart of the reference's ``ShapeDtypeStruct`` trees, which the
+dry-run counts a step over), the logical-axis tree (:func:`logical_axes`,
+resolved to shardings by :mod:`repro_torch.distributed.sharding`) and the
 parameter count (:func:`param_count`).  The init rules are the reference's:
 ``scaled_normal`` draws with std ``scale / sqrt(fan_in)``, ``normal`` with
 std ``scale``, ``embed`` with std ``0.02 * scale``, ``ones``/``zeros``
@@ -57,13 +61,34 @@ class P:
             )
 
 
+_NODES: set = set()
+
+
+def register_node(cls):
+    """Class decorator: instances of the dataclass ``cls`` (a
+    ``TrainState``) are walked field by field by :func:`tree_map` and
+    :func:`leaves`, as ``jax.tree_util`` walks a registered node; any other
+    dataclass (:class:`P`, a sharding) is a leaf."""
+    _NODES.add(cls)
+    return cls
+
+
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """Apply ``fn`` to the leaves of nested dicts and lists (in key order),
-    zipping any further trees of the same structure."""
+    """Apply ``fn`` to the leaves of nested dicts, lists, tuples and
+    registered dataclasses (in key and field order), zipping any further
+    trees of the same structure.  ``None`` is an empty subtree: it stays
+    ``None`` and holds no leaf."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, t, *r) for t, *r in zip(tree, *rest)]
+    if type(tree) in _NODES:
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
     return fn(tree, *rest)
 
 
@@ -78,6 +103,12 @@ def unflatten(tree: Tree, leaves: list) -> Tree:
     order (each new leaf may itself be any object)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def tree_map_p(fn: Callable, tree: Tree) -> Tree:
+    """Apply ``fn`` to the :class:`P` leaves of ``tree``; other leaves stay
+    as they are."""
+    return tree_map(lambda x: fn(x) if isinstance(x, P) else x, tree)
 
 
 def tree_map_with_paths(fn: Callable, tree: Tree, prefix: str = "") -> Tree:
@@ -101,6 +132,20 @@ def leaves_with_paths(tree: Tree, prefix: str = "") -> list[tuple[str, Any]]:
         return [pl for i, t in enumerate(tree)
                 for pl in leaves_with_paths(t, f"{prefix}{i}.")]
     return [(prefix[:-1], tree)]
+
+
+def flatten_with_paths(tree: Tree) -> list[tuple[str, Any]]:
+    """``[(dot.path, leaf)]`` in the reference's order (``jax.tree_util``
+    flattens dict keys sorted; :func:`leaves_with_paths` keeps insertion
+    order), with the same paths."""
+    if isinstance(tree, dict):
+        return [(f"{k}.{p}" if p else str(k), leaf) for k in sorted(tree)
+                for p, leaf in flatten_with_paths(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [(f"{i}.{p}" if p else str(i), leaf)
+                for i, t in enumerate(tree)
+                for p, leaf in flatten_with_paths(t)]
+    return [("", tree)]
 
 
 INIT_PIECE = 1 << 26  # elements of one f32 draw (256 MB)
@@ -141,6 +186,18 @@ def init_params(tree: Tree, seed: int = 0, *, dtype=torch.float32,
     device = torch.device(device or "cpu")
     gen = torch.Generator(device=device).manual_seed(seed)
     return tree_map(lambda p: _init_one(p, gen, dtype, device), tree)
+
+
+def abstract_params(tree: Tree, dtype=torch.float32) -> Tree:
+    """Tensors on the ``meta`` device shaped and typed as the declarations
+    (a leaf's own dtype wins): they allocate nothing, so a step over them
+    can be traced and counted for a 1T-parameter model on any host."""
+    return tree_map_p(lambda p: torch.empty(p.shape, dtype=p.dtype or dtype,
+                                            device="meta"), tree)
+
+
+def logical_axes(tree: Tree) -> Tree:
+    return tree_map_p(lambda p: tuple(p.axes), tree)
 
 
 def param_count(tree: Tree) -> int:

@@ -5,7 +5,10 @@ config (the paper's own knobs, §IV–V).
 Every architecture registers a :class:`ModelConfig` from its module
 ``repro_torch/configs/<arch>.py``; :func:`get_arch` imports it on first
 use.  The numbers are the reference's, module for module.  The dry-run's
-shapes, cells and meshes are not ported.
+shapes (:data:`SHAPES`), its 40 (arch × shape) cells (:func:`cells`, with
+the reference's skip rule) and the production mesh shapes
+(:data:`SINGLE_POD`, :data:`MULTI_POD`) are the reference's, letter for
+letter; :mod:`repro_torch.launch` walks them.
 """
 
 from __future__ import annotations
@@ -71,10 +74,10 @@ class ModelConfig:
     n_audio_frames: int = 0
     # vlm: number of patch embeddings prepended by the (stubbed) ViT frontend.
     n_patches: int = 0
-    # substrate knobs, kept so that configs compare field for field with the
-    # reference's; the serving path reads only mixer_chunk and
-    # moe_dispatch_groups (training, sharding and the fa2 / seq_shard
-    # attention branches are not ported)
+    # substrate knobs, as the reference's.  attn_impl maps "scan" and
+    # "fa2" to one differentiable path (models/attention.py says why);
+    # attn_seq_shard adds the context-parallel constraints, identities on
+    # one card (distributed/sharding.py)
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
     remat: str = "full"  # none | full | dots
@@ -104,6 +107,47 @@ class ModelConfig:
         if self.attn_period <= 0:
             return True
         return layer_idx % self.attn_period == self.attn_offset
+
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+    # grad-accumulation microbatch (train only); 0 → global_batch (no accum)
+    microbatch: int = 0
+
+    @property
+    def resolved_microbatch(self) -> int:
+        return self.microbatch or self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train", microbatch=32),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill", microbatch=8),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# Archs with a sub-quadratic (state-based) sequence mixer: they run long_500k.
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runnable, reason). Encodes the assignment's skip rules."""
+    if shape.name == "long_500k" and model.family not in SUBQUADRATIC_FAMILIES:
+        return False, (
+            "long_500k requires sub-quadratic attention; "
+            f"{model.name} ({model.family}) is full-attention — skipped per "
+            "assignment (see DESIGN.md §Arch-applicability)"
+        )
+    return True, ""
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +184,17 @@ def get_arch(name: str) -> ModelConfig:
 
 def all_archs() -> dict[str, ModelConfig]:
     return {a: get_arch(a) for a in ARCH_IDS}
+
+
+def cells():
+    """All (arch, shape, runnable, reason) dry-run cells — 40 total."""
+    out = []
+    for arch_id in ARCH_IDS:
+        model = get_arch(arch_id)
+        for shape in SHAPES.values():
+            ok, reason = shape_applicable(model, shape)
+            out.append((arch_id, shape.name, ok, reason))
+    return out
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
@@ -210,3 +265,20 @@ class IndexConfig:
             return 1.0
         frac = block_idx / (n_blocks - 1)
         return float(self.tau0 + (1.0 - self.tau0) * frac)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    shape: tuple
+    axes: tuple
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshShape((16, 16), ("data", "model"))
+MULTI_POD = MeshShape((2, 16, 16), ("pod", "data", "model"))

@@ -18,6 +18,10 @@ sums dk and dv over each KV head's group of query heads.  Chunks wholly
 above the causal diagonal are skipped: every p there is exp(−1e30 − lse)
 = 0, so skipping them changes no sum.
 
+On ``meta`` tensors (a step count) the backward computes nothing and
+reports its work, 10·Dh flops a (head, query, key) pair the causal mask
+keeps (:mod:`repro_torch.launch.step_cost`).
+
 The reference's module holds no ``pallas_call``: its backward is jnp, and
 so is this one's torch.  A hand-written backward kernel is later work on
 K5 (ROADMAP.md, queue B).
@@ -39,6 +43,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     dout [B, H, S, Dh], k/v [B, Hkv, T, Dh], lse [B, H, S]."""
     b, h, s, dh = q.shape
     hkv, t = k.shape[1], k.shape[2]
+    if q.device.type == "meta":  # a step count: the work, no computation
+        grads = (torch.empty_like(q), torch.empty_like(k),
+                 torch.empty_like(v))
+        ops.report_work(
+            "flash_attention_bwd",
+            10 * dh * b * h * ops.attention_pairs(s, t, causal),
+            ops.nbytes(q, k, v, out, lse, dout, *grads))
+        return grads
     g = h // hkv
     qf = q.float().reshape(b, hkv, g, s, dh) * scale
     dof = dout.float().reshape(b, hkv, g, s, dh)

@@ -7,16 +7,22 @@ Every path runs K5 or K6.  ``attn_forward``, ``attn_prefill`` and
 card) when no gradient is wanted, and through
 :func:`repro_torch.kernels.flash_vjp.flash_attention_fa2` (K5 with its
 log-sum-exp, FA2 recompute backward) when grad mode is on and an input
-requires grad.  The reference's two training implementations,
-``attn_impl="scan"`` (``flash_attention_jnp``, differentiated by JAX) and
-``"fa2"`` (its custom-VJP flash attention), compute the same function and
-the same gradient, so both map to that one path and the port reads no
-``attn_impl``.  ``attn_decode`` and ``cross_attn_decode`` go through
-``ops.flash_decode`` (K6), which has no backward and raises under grad.
-Layouts are the reference's: activations [B, S, D], heads [B, H, S, Dh],
-weights [in, out].  Whisper's projections carry biases on q, v and the
-output (``AttnDims.bias``); ``rope_theta == 0`` means no RoPE.  The
-``seq_shard`` constraints wait for the mesh slice.
+requires grad.  The reference's two training implementations compute the
+same function and the same gradient: ``attn_impl="scan"`` (its default,
+``flash_attention_jnp`` differentiated by JAX; the port's counterpart is
+``ops.flash_attention_chunked``, which the tests hold to it) and
+``"fa2"`` (its custom-VJP flash attention).  Both map to the FA2 path, so
+the port reads no ``attn_impl``: mapping ``"scan"`` to the chunked torch
+ops would take K5 off the training path.  ``attn_decode`` and
+``cross_attn_decode`` go through ``ops.flash_decode`` (K6), which has no
+backward and raises under grad.  Layouts are the reference's: activations
+[B, S, D], heads [B, H, S, Dh], weights [in, out].  Whisper's projections
+carry biases on q, v and the output (``AttnDims.bias``); ``rope_theta ==
+0`` means no RoPE.  With ``seq_shard`` (``cfg.attn_seq_shard``) prefill
+and the full-sequence forward constrain q, k and v by the reference's
+logical axes (q's sequence over ``seq_attn``, context parallelism):
+identities on one card, checked against the shapes under a mesh context
+(:func:`repro_torch.distributed.sharding.constrain`).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import dataclasses
 import torch
 
 from repro_torch.common.params import P
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_vjp import flash_attention_fa2
 from repro_torch.models import layers
@@ -39,6 +46,7 @@ class AttnDims:
     head_dim: int
     rope_theta: float  # 0.0 → no RoPE (learned positions upstream)
     bias: bool = False  # whisper-style projection biases
+    seq_shard: bool = False  # context-parallel q-seq constraints
 
 
 def attn_p(dims: AttnDims) -> dict:
@@ -120,6 +128,10 @@ def attn_prefill(x: torch.Tensor, p, dims: AttnDims, rope, *,
     if rope is not None:
         q = layers.rope_rotate(q, *rope)
         k = layers.rope_rotate(k, *rope)
+    if dims.seq_shard:
+        q = shd.constrain(q, "batch", "act_heads", "seq_attn", None)
+        k = shd.constrain(k, "batch", "act_kv", None, None)
+        v = shd.constrain(v, "batch", "act_kv", None, None)
     k, v = k.contiguous(), v.contiguous()
     o = _attend(q, k, v, causal=causal)
     return _merge_heads(o, p, dims), {"k": k, "v": v}

@@ -108,6 +108,7 @@ def _dims(cfg: ModelConfig) -> Dims:
         head_dim=cfg.resolved_head_dim,
         rope_theta=cfg.rope_theta,
         bias=cfg.family == "encdec",
+        seq_shard=cfg.attn_seq_shard,
     )
     ssm_dims = None
     if cfg.ssm is not None and cfg.family == "hybrid":
@@ -315,6 +316,19 @@ class ParamNode(nn.Module):
 
     def keys(self) -> list[str]:
         return list(self._keys)
+
+
+def per_layer_spec(cfg: ModelConfig, spec: dict) -> dict:
+    """:func:`param_spec`'s declarations in the module's per-layer layout
+    (:func:`param_tree`'s): each stacked leaf without its leading
+    ``layers`` axis, which never shards."""
+
+    def unstack(p: P, j: int) -> P:
+        return dataclasses.replace(
+            p, shape=p.shape[1:], axes=p.axes[1:],
+            fan_in_axes=tuple(a - 1 for a in p.fan_in_axes))
+
+    return _per_layer(cfg, spec, unstack)
 
 
 def _node(tree, requires_grad: bool = False) -> nn.Module:
@@ -811,6 +825,15 @@ class Model:
         out = params_module(self.cfg, tree, requires_grad=requires_grad)
         out.compute_dtype = dtype
         return out
+
+    def abstract_params(self, dtype=torch.float32) -> dict:
+        """The spec as ``meta`` tensors in its stacked layout (nothing is
+        allocated; :func:`params_module` makes the model's module of
+        them)."""
+        return par.abstract_params(self.spec, dtype)
+
+    def logical_axes(self) -> dict:
+        return par.logical_axes(self.spec)
 
     @property
     def n_params(self) -> int:

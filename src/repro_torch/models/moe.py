@@ -18,6 +18,12 @@ axis: the reference scatter-adds them into the token rows
 token-major, so the two are the same sum; a sum over an axis is also
 deterministic on the card, where an atomic scatter-add is not.
 
+Under a mesh context the dispatch carries the reference's three
+constraints (the token groups over ``dispatch``, the [G, E, C, D] buffer
+and the experts' outputs over ``dispatch`` and ``act_experts``):
+identities on one card, checked against the shapes
+(:func:`repro_torch.distributed.sharding.constrain`).
+
 Losses: switch-style load balance, router z-loss and the dropped fraction,
 returned as f32 scalars the way the reference computes them.
 """
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.params import P
+from repro_torch.distributed import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +101,7 @@ def moe_forward(x: torch.Tensor, p, dims: MoEDims
     if ng <= 1 or t_total % ng:
         ng = 1
     xt = flat.reshape(ng, t_total // ng, d)  # [G, T, D]
+    xt = shd.constrain(xt, "dispatch", None, None)
     t = xt.shape[1]
     c = capacity(t, dims)
 
@@ -116,11 +124,13 @@ def moe_forward(x: torch.Tensor, p, dims: MoEDims
     xe = xt.new_zeros(ng * e * (c + 1), d)
     xe[slot.reshape(-1)] = xt.repeat_interleave(k, dim=1).reshape(-1, d)
     xe = xe.view(ng, e, c + 1, d)[:, :, :c]  # drop the overflow slot
+    xe = shd.constrain(xe, "dispatch", "act_experts", None, None)
 
     # the experts: one batched product per weight, [G*E] batches
     xe = xe.transpose(0, 1).reshape(e, ng * c, d)
     ye = _swiglu(xe, p["w_gate"], p["w_up"], p["w_down"])  # [E, G*C, D]
     ye = ye.view(e, ng, c, d).transpose(0, 1)  # [G, E, C, D]
+    ye = shd.constrain(ye, "dispatch", "act_experts", None, None)
 
     # gather back + combine weighted by router prob
     flat_out = ye[gidx, flat_e, flat_pos.clamp_max(c - 1)]  # [G, T*k, D]

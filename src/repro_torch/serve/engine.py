@@ -19,6 +19,10 @@ Compute is bf16, as in the reference; the parameters are cast once, at
 construction, onto the engine's device (the card unless the CPU is asked),
 leaves whose spec fixes their dtype (f32 routers and SSM decay logs) as
 they are.
+``serve_step_fn(model)`` is the dry-run's serve step: one ``decode_fn``
+call over a full cache (the ``decode_*`` / ``long_*`` cells count and
+run exactly this).
+
 Each wave's timings land in ``ServeEngine.waves``, read at the points where
 the host already waits for the device (the sampled tokens), so recording
 them adds no synchronisation.
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -155,3 +160,13 @@ class ServeEngine:
             prompt_tokens=sum(len(r.prompt) for r in wave),
             prefill_s=t_first - t0, decode_steps=steps,
             decode_tokens=emitted - min(emitted, b), decode_s=t_end - t_first))
+
+
+def serve_step_fn(model: Model) -> Callable:
+    """The dry-run's serve_step: one decode step over a full cache
+    (the ``decode_*`` / ``long_*`` cells count exactly this)."""
+
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_fn(params, cache, tokens, pos)
+
+    return serve_step

@@ -9,11 +9,12 @@ from repro_torch.train.optimizer import (Optimizer, adafactor, adamw,
                                          global_norm, optimizer_state_bytes)
 from repro_torch.train.train_step import (TrainConfig, TrainState,
                                           init_train_state, lr_schedule,
-                                          make_train_step)
+                                          make_train_step, sharded_train_step,
+                                          state_spec)
 
 __all__ = [
     "Optimizer", "TrainConfig", "TrainState", "adafactor", "adamw",
     "checkpoint", "clip_by_global_norm", "compression", "for_config",
     "global_norm", "init_train_state", "lr_schedule", "make_train_step",
-    "optimizer_state_bytes",
+    "optimizer_state_bytes", "sharded_train_step", "state_spec",
 ]

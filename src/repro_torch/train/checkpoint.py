@@ -17,9 +17,13 @@ Fault-tolerance contract:
     mid-write restarts from the previous step;
   * the data pipeline seeks to ``step·global_batch`` on restart.
 
-The reference's ``shardings=`` (re-sharding onto another mesh at restore)
-has no counterpart on one card: a restored leaf goes to the device of the
-leaf it replaces.
+``restore(..., shardings=)`` takes a tree of the port's
+:class:`~repro_torch.distributed.sharding.NamedSharding` shaped like
+``like_tree`` and places each leaf on its mesh's device, as the reference
+re-shards onto the current mesh.  One card holds a leaf whole: a spec that
+splits a leaf over an axis of size > 1, or a spec-only mesh (the
+production meshes, which hold no device), raises.  Without ``shardings``
+a restored leaf goes to the device of the leaf it replaces.
 """
 
 from __future__ import annotations
@@ -107,18 +111,34 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _restored(arr: np.ndarray, meta: dict, like) -> torch.Tensor:
+def _device_of(sharding, path: str) -> torch.device:
+    """The one device a leaf restored under ``sharding`` goes to."""
+    if sharding.mesh.devices is None:
+        raise ValueError(f"leaf {path}: a spec-only mesh "
+                         f"{dict(sharding.mesh.shape)} holds no device")
+    if sharding.shard_factor() > 1:
+        raise ValueError(f"leaf {path}: {sharding.spec} splits it over "
+                         f"{sharding.shard_factor()} devices; one card "
+                         "holds a leaf whole")
+    return sharding.mesh.devices[0]
+
+
+def _restored(arr: np.ndarray, meta: dict, like, sharding) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr))
     if meta["dtype"] == "bfloat16":
         t = t.view(torch.bfloat16)
+    if sharding is not None:
+        return t.to(_device_of(sharding, meta["path"]))
     device = like.device if isinstance(like, torch.Tensor) else "cpu"
     return t.to(device)
 
 
-def restore(directory: str, step: int, like_tree):
+def restore(directory: str, step: int, like_tree, *, shardings=None):
     """Restore into the structure of ``like_tree``: tensors, each on the
-    device of the leaf it replaces (the CPU for a non-tensor leaf), in the
-    dtype it was saved in.  A leaf count or shape that differs raises."""
+    device of the leaf it replaces (the CPU for a non-tensor leaf), or on
+    its sharding's device when ``shardings`` (a tree of NamedSharding
+    shaped like ``like_tree``) is given, in the dtype it was saved in.  A
+    leaf count or shape that differs raises."""
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -129,8 +149,12 @@ def restore(directory: str, step: int, like_tree):
             f"checkpoint has {len(leaves_meta)} leaves, tree expects "
             f"{len(flat)}"
         )
+    sh_flat = ([sh for _, sh in _flatten(shardings)]
+               if shardings is not None else [None] * len(flat))
+    if len(sh_flat) != len(flat):
+        raise ValueError(f"{len(sh_flat)} shardings for {len(flat)} leaves")
     out = []
-    for meta, like in zip(leaves_meta, flat):
+    for meta, like, sh in zip(leaves_meta, flat, sh_flat):
         arr = np.load(os.path.join(d, meta["file"]))
         want = tuple(like.shape if hasattr(like, "shape")
                      else np.shape(like))
@@ -139,13 +163,13 @@ def restore(directory: str, step: int, like_tree):
                 f"leaf {meta['path']}: checkpoint shape {arr.shape} != "
                 f"expected {want}"
             )
-        out.append(_restored(arr, meta, like))
+        out.append(_restored(arr, meta, like, sh))
     return _unflatten(like_tree, iter(out)), manifest
 
 
-def restore_latest(directory: str, like_tree):
+def restore_latest(directory: str, like_tree, *, shardings=None):
     step = latest_step(directory)
     if step is None:
         return None
-    tree, manifest = restore(directory, step, like_tree)
+    tree, manifest = restore(directory, step, like_tree, shardings=shardings)
     return step, tree, manifest

@@ -10,10 +10,12 @@ A tree is nested dicts and lists of tensors (the port's
 :func:`repro_torch.models.model.param_tree`).  ``update(grads, state,
 params, lr)`` returns new parameters and state and leaves its arguments
 as they are; every update runs in f32 and casts back to the parameter's
-dtype, as the reference's does.  The reference's ``state_spec`` (the
-optimizer state's logical axes, for sharding it like the parameters)
-waits for the mesh slice; :func:`optimizer_state_bytes` counts the same
-bytes from the parameter spec directly.
+dtype, as the reference's does.  Each optimizer's ``state_spec(param_spec)``
+is the reference's: a ``P`` declaration tree of its state, so the FSDP
+sharding rules apply to optimizer state exactly as they do to parameters
+(ZeRO-style); given the stacked spec it gives the reference's layout,
+given a per-layer spec the layout of the state ``init`` makes.
+:func:`optimizer_state_bytes` counts its bytes from the parameter spec.
 """
 
 from __future__ import annotations
@@ -25,6 +27,19 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.common import params as par
+from repro_torch.common.params import P
+
+
+def tree_zeros_like_spec(spec_tree):
+    return par.tree_map_p(
+        lambda p: P(shape=p.shape, axes=p.axes, init="zeros",
+                    dtype=torch.float32),
+        spec_tree,
+    )
+
+
+def _count_spec() -> P:
+    return P(shape=(), axes=(), init="zeros", dtype=torch.int32)
 
 
 def _f32_zeros(tree):
@@ -56,6 +71,7 @@ class Optimizer:
     name: str
     init: Callable[[Any], Any]
     update: Callable[..., tuple]  # (grads, state, params, lr) -> (params, state)
+    state_spec: Callable[[Any], Any]
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +110,14 @@ def adamw(
                                for i in range(3))
         return new_p, {"mu": new_m, "nu": new_v, "count": count}
 
-    return Optimizer("adamw", init, update)
+    def state_spec(param_spec):
+        return {
+            "mu": tree_zeros_like_spec(param_spec),
+            "nu": tree_zeros_like_spec(param_spec),
+            "count": _count_spec(),
+        }
+
+    return Optimizer("adamw", init, update, state_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +183,22 @@ def adafactor(
                 {"v": par.unflatten(params, [o[1] for o in out]),
                  "count": count})
 
-    return Optimizer("adafactor", init, update)
+    def state_spec(param_spec):
+        def one(p: P):
+            if _factored(p.shape):
+                return {
+                    "vr": P(shape=p.shape[:-1], axes=p.axes[:-1],
+                            init="zeros", dtype=torch.float32),
+                    "vc": P(shape=p.shape[:-2] + p.shape[-1:],
+                            axes=p.axes[:-2] + p.axes[-1:],
+                            init="zeros", dtype=torch.float32),
+                }
+            return {"v": P(shape=p.shape, axes=p.axes, init="zeros",
+                           dtype=torch.float32)}
+
+        return {"v": par.tree_map_p(one, param_spec), "count": _count_spec()}
+
+    return Optimizer("adafactor", init, update, state_spec)
 
 
 def _per_leaf(vtree, params) -> list:
@@ -182,17 +220,8 @@ def for_config(name: str) -> Optimizer:
 
 
 def optimizer_state_bytes(param_spec, name: str) -> int:
-    """Analytic optimizer-state footprint from a :class:`P` spec tree: the
-    bytes of the reference's ``state_spec`` leaves (f32 moments, an int32
-    count)."""
-    for_config(name)  # rejects an unknown name
-    total = 4  # the int32 count
-    for p in par.leaves(param_spec):
-        if name == "adamw":
-            total += 2 * 4 * math.prod(p.shape)
-        elif _factored(p.shape):
-            total += 4 * (math.prod(p.shape[:-1])
-                          + math.prod(p.shape[:-2] + p.shape[-1:]))
-        else:
-            total += 4 * math.prod(p.shape)
-    return total
+    """Analytic optimizer-state footprint: the bytes of the leaves of the
+    optimizer's ``state_spec``."""
+    spec = for_config(name).state_spec(param_spec)
+    return int(sum(math.prod(p.shape) * (p.dtype or torch.float32).itemsize
+                   for p in par.leaves(spec)))

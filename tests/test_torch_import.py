@@ -6,7 +6,8 @@ request through ``AnnServer``, runs a fleet build with a kill through
 ``repro_torch.fleet`` and its scheduler and cost model, runs every model
 family's prefill and decode, takes a training step through
 ``repro_torch.train`` and the FA2 backward, and runs one retrieval-
-attention decode step), and its entry
+attention decode step, and counts one dry-run cell through
+``repro_torch.launch.dryrun`` on the meta device), and its entry
 points run on the card unless the CPU
 is asked for — without CUDA they raise instead of carrying on quietly on
 the CPU."""
@@ -145,6 +146,15 @@ idx = build_key_indexes(kc, kc, device="cpu")
 o, st = retrieval_decode_attention(kc[:, :, -1], idx, top_t=8, window=4,
                                    width=16, backend="fused", device="cpu")
 assert o.shape == (1, 1, 16) and st["n_distance_computations"] > 0
+import repro_torch.distributed.sharding, repro_torch.launch.dryrun
+import repro_torch.launch.mesh, repro_torch.launch.specs
+import repro_torch.launch.step_cost
+from repro_torch.launch import dryrun
+
+with tempfile.TemporaryDirectory() as d:
+    assert dryrun.main(["--arch", "tinyllama_1_1b", "--shape", "decode_32k",
+                        "--mesh", "single", "--quiet",
+                        "--out", d + "/r.json"]) == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -170,7 +180,9 @@ def test_package_sources_never_name_jax_or_reference():
             "configs/whisper_base.py", "kernels/flash_vjp.py",
             "serve/retrieval_attention.py", "train/__init__.py",
             "train/optimizer.py", "train/compression.py",
-            "train/checkpoint.py", "train/train_step.py"} <= names
+            "train/checkpoint.py", "train/train_step.py",
+            "distributed/sharding.py", "launch/mesh.py", "launch/specs.py",
+            "launch/step_cost.py", "launch/dryrun.py"} <= names
     for path in paths:
         for line in path.read_text().splitlines():
             stripped = line.strip()
@@ -241,6 +253,10 @@ def test_lm_entry_points_raise_without_cuda(monkeypatch):
         lm.init(seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_cache_fn(1, 8)
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    assert make_host_mesh("cpu").devices == (torch.device("cpu"),)
     for arch in ("jamba_v0_1_52b", "rwkv6_1_6b", "whisper_base"):
         other = build_model(smoke_config(get_arch(arch)))
         with pytest.raises(RuntimeError, match="CUDA"):
