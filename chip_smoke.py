@@ -221,6 +221,22 @@
    8e-3 and to 8e-3 x their largest magnitude (they average thousands of
    random rows and are far below 1).  K5 and K6 are timed beside SDPA with
    their bounds.
+17. Examples phase (after the launch phase), counters zeroed just before
+   and read just after: the six entry points of ``repro_torch.examples``
+   (``quickstart``, ``serve_ann``, ``build_spot_index``,
+   ``lm_embed_index``, ``train_lm`` with its checkpoints under
+   ``build/examples_ckpt``, ``serve_lm``), each ``main([...])`` called in
+   process at the reference scripts' defaults, its lines logged with its
+   wall time and launches; then the quickstart runs with ``--device cpu``
+   in a subprocess, after the card's scripts so that it takes no host
+   cores from their timed runs.  Gates: each exits 0 and prints its markers;
+   the quickstart's checks hold (fleet graphs identical, the trace, the
+   deleted id absent, the recovered ids identical, ``fused`` uint8 ids
+   equal to ``torch``'s and f32 equal or differing at near-ties only);
+   its lines equal the CPU run's in every counter and in the uint8 lines,
+   f32/bf16 recall within 0.01; train_lm's final loss finite; K1–K6 all
+   launched in the phase.  One ``examples {...}`` line (wall times,
+   launches, the card).
 
 Prints one ``{"kernels": [...]}`` line, then the card's line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero on any
@@ -235,6 +251,8 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import os
+import re
 import subprocess
 import sys
 import threading
@@ -630,24 +648,14 @@ def check_distance_variants(torch):
                  "was not reached")
 
 
-def near_ties(torch, q, x, got_ids, want_ids, rtol: float,
-               metric: str = "l2") -> int:
-    """Count positions where two id lists differ by more than a near-tie:
-    both ids' distances to the row's query, in float64, within ``rtol``."""
-    rows, cols = torch.nonzero(got_ids != want_ids, as_tuple=True)
-    if rows.numel() == 0:
-        return 0
-    a, b = got_ids[rows, cols].long(), want_ids[rows, cols].long()
-    if bool(((a < 0) | (b < 0)).any()):
-        return int(rows.numel())
-    qd = q[rows].double()
-    if metric == "ip":
-        da = -(x[a].double() * qd).sum(dim=1)
-        db = -(x[b].double() * qd).sum(dim=1)
-    else:
-        da = ((x[a].double() - qd) ** 2).sum(dim=1)
-        db = ((x[b].double() - qd) ** 2).sum(dim=1)
-    return int(((da - db).abs() > rtol * db.abs().clamp_min(1e-30)).sum())
+def near_ties(q, x, got_ids, want_ids, rtol: float,
+              metric: str = "l2") -> int:
+    """Count positions where two id lists differ by more than a near-tie
+    (``near_tie_breaks``, the quickstart's rule, with ``rtol`` alone)."""
+    from repro_torch.data.synthetic import near_tie_breaks
+
+    return int(near_tie_breaks(q, x, got_ids, want_ids, rtol=rtol,
+                               metric=metric).sum())
 
 
 def check_k4(torch, rows, ds, res):
@@ -685,7 +693,7 @@ def check_k4(torch, rows, ds, res):
         need(bool((torch.isfinite(gd) == fin).all()), f"K4 {name}: padding")
         err = float((gd - wd)[fin].abs().max())
         same = bool(torch.equal(gi.long(), wi))
-        bad = 0 if same else near_ties(torch, q, x, gi, wi, 1e-5, metric)
+        bad = 0 if same else near_ties(q, x, gi, wi, 1e-5, metric)
         log(f"K4 {name} [{q.shape[0]},{q.shape[1]}]x[{x.shape[0]},"
             f"{x.shape[1]}] k={k} {metric} max_abs_err={err:.3e} "
             f"ids_equal={same} beyond_near_ties={bad}")
@@ -714,7 +722,7 @@ def check_k4(torch, rows, ds, res):
         f"id_agreement={agree:.6f} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"cdist_ms={cd_ms:.4f} topk_ms={tk_ms:.4f} "
         f"cdist+topk_ms={cd_ms + tk_ms:.4f}")
-    bad = near_ties(torch, q, x, gi, wi, 1e-5)
+    bad = near_ties(q, x, gi, wi, 1e-5)
     log(f"K4 ids differing beyond a 1e-5 relative near-tie: {bad}")
     need(err <= 1e-5 * float(wd.abs().max()) + 1e-4, "K4 distances disagree")
     need(bad == 0, "K4 ids disagree beyond near-ties")
@@ -919,7 +927,7 @@ def check_k3(torch, rows, ds, merged):
                 # f32/bf16 traversals sum in another order than the plain
                 # version, so ids may differ at near-ties; where a re-ranked
                 # id agrees, its exact distance is summed in one order
-                bad = near_ties(torch, qf, exact.x, got[0], want[0], 1e-5)
+                bad = near_ties(qf, exact.x, got[0], want[0], 1e-5)
                 d_equal = bool(torch.equal(got[1][same], want[1][same]))
                 log(f"K3 {dtype} Q={nq}: ids differing beyond a 1e-5 "
                     f"near-tie of the exact distance: {bad}"
@@ -1152,7 +1160,7 @@ def check_served_ids(torch, name, topo, cfg, data, queries, out):
         want, _ = search(topo, queries[js], cfg.k, width=cfg.width,
                          n_entries=cfg.n_entries, rerank=cfg.rerank, **opts)
         agree = float((got == want).mean())
-        bad = near_ties(torch, torch.from_numpy(queries[js]).cuda(), x,
+        bad = near_ties(torch.from_numpy(queries[js]).cuda(), x,
                         torch.from_numpy(got).cuda(),
                         torch.from_numpy(want).cuda(), 1e-5)
         log(f"serving {name} ids {opts} requests={len(js)} agreement "
@@ -2014,7 +2022,7 @@ def check_torch_backend(torch, ds, topo):
         cpu_s = time.perf_counter() - t0
         agree = float((gi == wi).mean())
         same = dataclasses.asdict(gs) == dataclasses.asdict(ws)
-        bad = near_ties(torch, torch.from_numpy(q).cuda(), x,
+        bad = near_ties(torch.from_numpy(q).cuda(), x,
                         torch.from_numpy(gi).cuda(),
                         torch.from_numpy(wi).cuda(), 1e-5)
         log(f"torch backend {dtype} card vs CPU ({len(q)} queries): "
@@ -3302,7 +3310,7 @@ def retrieval_path(torch, engine):
         b, _ = search(ki.topology(), q_row[0, hi][None], 64,
                       backend="torch", device="cpu", **kw)
         differ += int((a != b).sum())
-        not_tie += near_ties(torch, torch.from_numpy(q_row[0, hi][None]),
+        not_tie += near_ties(torch.from_numpy(q_row[0, hi][None]),
                              torch.from_numpy(ki.keys), torch.from_numpy(a),
                              torch.from_numpy(b), 1e-5, metric="ip")
     row = {"keys": t, "kv_heads": hkv, "query_heads": h,
@@ -4017,6 +4025,207 @@ def launch_path(torch):
     return {name: total[name] for name in LM_KERNELS}
 
 
+
+# ---------------------------------------------------------------------------
+# Step 17: the examples phase
+# ---------------------------------------------------------------------------
+
+# the six entry points at the reference scripts' defaults; train_lm writes
+# its checkpoints under build/ (its default directory could hold a run to
+# resume)
+EXAMPLES_CKPT = ROOT / "build" / "examples_ckpt"
+EXAMPLE_ARGS = {
+    "quickstart": [],
+    "serve_ann": [],
+    "build_spot_index": [],
+    "lm_embed_index": [],
+    "train_lm": ["--ckpt-dir", str(EXAMPLES_CKPT)],
+    "serve_lm": [],
+}
+EXAMPLE_MARKERS = {
+    "quickstart": ("recall@10",),
+    "serve_ann": ("achieved QPS", "recall@10"),
+    "build_spot_index": ("recall@10", "simulated [cost_greedy]"),
+    "lm_embed_index": ("recall@10", "self-token found"),
+    "train_lm": ("checkpoint →", "done: final loss"),
+    "serve_lm": ("served 6 requests",),
+}
+EXAMPLE_RECALL_TOL = 0.01  # f32/bf16 quickstart recall, card against CPU
+# the parts of a quickstart line that are timings, paths or the card-only
+# near-tie report; the rest must be reproduced
+QUICKSTART_UNTIMED = re.compile(
+    r"p95 = [\d.]+ ms  mean batch = [\d.]+|\(\$[\d.]+ at spot prices\)|"
+    r"  rows differ: \([^)]*\), near-ties: \([^)]*\)|open \S+ at")
+
+
+def quickstart_fields(lines: list) -> list:
+    """``(label, recall@10 or None, other numbers)`` of each quickstart line
+    the card's run must reproduce; the timing lines (partition, build) are
+    left out."""
+    out = []
+    for line in lines:
+        if line.startswith(("partition ", "[build]")):
+            continue
+        line = QUICKSTART_UNTIMED.sub("", line)
+        label = line.split("]")[0] + "]" if line.startswith("[") else \
+            line.split()[0]
+        m = re.search(r"recall@10 = ([\d.]+)", line)
+        recall = float(m.group(1)) if m else None
+        if m:
+            line = line.replace(m.group(0), "")
+        out.append((label, recall, re.findall(r"\d+(?:\.\d+)?",
+                                              line[len(label):])))
+    return out
+
+
+def check_quickstart(card_out: str, cpu_out: str) -> None:
+    """The card's quickstart: every printed check holds (fleet graphs, the
+    trace, the deleted id, recovery; ``fused`` uint8 ids equal to
+    ``torch``'s, f32 equal or differing at near-ties only), and its lines
+    are the CPU run's: every counter and the uint8 lines equal, f32/bf16
+    recall within ``EXAMPLE_RECALL_TOL``."""
+    lines = card_out.splitlines()
+
+    def line_of(prefix):
+        hit = [ln for ln in lines if ln.startswith(prefix)]
+        need(len(hit) == 1, f"quickstart printed {len(hit)} {prefix!r} lines")
+        return hit[0]
+
+    for prefix, want in (
+        ("[fleet]", "graphs identical to uninterrupted build: True"),
+        ("[trace]", "kill->backoff->resume on the timeline: True"),
+        ("[live] gen", "returned anywhere: False"),
+        ("[durability] recovered", "identical to the uncrashed run: True"),
+        ("[fused/uint8]", "ids identical to torch: True"),
+    ):
+        need(want in line_of(prefix), f"quickstart on the card: "
+             f"{line_of(prefix)!r} lacks {want!r}")
+    fused = line_of("[fused] ")
+    if "ids identical to torch: False" in fused:
+        m = re.search(r"rows differ: \(([^)]*)\), near-ties: \(([^)]*)\)",
+                      fused)
+        need(m is not None, f"quickstart's fused line: {fused!r}")
+        ties = [t.strip() for t in m.group(2).split(",") if t.strip()]
+        need(ties and all(t == "True" for t in ties), "fused f32 ids on the "
+             f"card differ from torch's beyond near-ties: {fused!r}")
+        log(f"examples quickstart fused f32: rows {m.group(1)} differ from "
+            "torch, each at a near-tie")
+    else:
+        need("ids identical to torch: True" in fused, fused)
+    card, cpu = (quickstart_fields(o.splitlines())
+                 for o in (card_out, cpu_out))
+    need([c[0] for c in card] == [c[0] for c in cpu],
+         f"quickstart lines card {[c[0] for c in card]} against CPU "
+         f"{[c[0] for c in cpu]}")
+    worst = 0.0
+    for (label, r_card, n_card), (_, r_cpu, n_cpu) in zip(card, cpu):
+        need(n_card == n_cpu, f"quickstart {label} counters on the card "
+             f"{n_card} against the CPU's {n_cpu}")
+        if r_card is None:
+            continue
+        if "uint8" in label:
+            need(r_card == r_cpu, f"quickstart {label} recall on the card "
+                 f"{r_card} against the CPU's {r_cpu}")
+        worst = max(worst, abs(r_card - r_cpu))
+        need(abs(r_card - r_cpu) <= EXAMPLE_RECALL_TOL, f"quickstart "
+             f"{label} recall on the card {r_card} against the CPU's "
+             f"{r_cpu}")
+    log(f"examples quickstart card against CPU: {len(card)} lines, counters "
+        f"equal, uint8 lines equal, largest recall difference {worst:.3f}")
+
+
+def check_capture_streams(torch) -> None:
+    """A prune capture's side stream is never one the default-priority
+    pool hands out (a fleet worker's): 64 of each, no stream shared."""
+    from repro_torch.core import vamana
+
+    dev = torch.device("cuda")
+    pooled = {torch.cuda.Stream(dev).cuda_stream for _ in range(64)}
+    sides = {vamana._capture_stream(dev).cuda_stream for _ in range(64)}
+    log(f"examples capture streams: {len(pooled)} default-pool streams, "
+        f"{len(sides)} capture side streams, {len(pooled & sides)} shared")
+    need(not pooled & sides, "a prune capture's side stream is a stream "
+         "of the pool the fleet's workers draw from")
+
+
+def examples_path(torch, card: str):
+    """The six entry points of ``repro_torch.examples`` on the card (step
+    17), each ``main([...])`` called in process at the reference scripts'
+    defaults, every counter zeroed just before the first and read just
+    after the last; then the quickstart runs once more with ``--device
+    cpu`` in a subprocess (after the card's scripts, which are host-bound
+    and timed), and the card's lines are held to it.  Returns the phase's
+    launches."""
+    import importlib
+    import io
+    import math
+    import shutil
+
+    from repro_torch.kernels import LAUNCHES, reset_counts
+
+    t_phase = time.perf_counter()
+    tmp = ROOT / "build" / "examples_cpu_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    shutil.rmtree(EXAMPLES_CKPT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", TMPDIR=str(tmp), OMP_NUM_THREADS="4")
+    cpu = None
+    try:
+        check_capture_streams(torch)
+        torch.cuda.synchronize()
+        reset_counts()
+        outs, walls = {}, {}
+        for name, args in EXAMPLE_ARGS.items():
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            before = dict(LAUNCHES)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(args)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            outs[name] = buf.getvalue()
+            for line in outs[name].splitlines():
+                log(f"example {name} | {line}")
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                        if LAUNCHES[k] != before[k]}
+            log(f"example {name}: exit {rc}, wall {walls[name]:.3f} s on "
+                f"{card}, launches {launched}")
+            need(rc == 0, f"example {name} exited {rc}")
+            for marker in EXAMPLE_MARKERS[name]:
+                need(marker in outs[name], f"example {name} did not print "
+                     f"{marker!r}")
+        launches = dict(LAUNCHES)
+        loss = float(outs["train_lm"].split("done: final loss")[1].split()[0])
+        need(math.isfinite(loss), f"train_lm's final loss {loss}")
+        t0 = time.perf_counter()
+        cpu = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.examples.quickstart",
+             "--device", "cpu"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        cpu_out, cpu_err = cpu.communicate(timeout=900)
+        log(f"example quickstart (cpu): wall {time.perf_counter() - t0:.3f} "
+            "s on the host")
+    finally:
+        if cpu is not None and cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+        shutil.rmtree(EXAMPLES_CKPT, ignore_errors=True)
+    need(cpu.returncode == 0, "quickstart --device cpu exited "
+         f"{cpu.returncode}: {cpu_err[-2000:]}")
+    for line in cpu_out.splitlines():
+        log(f"example quickstart (cpu) | {line}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    check_quickstart(outs["quickstart"], cpu_out)
+    log("examples " + json.dumps({
+        "wall_s": walls, "launches": launches, "card": card}))
+    for name in ANN_KERNELS + LM_KERNELS:
+        need(launches[name] > 0, f"the examples phase never launched {name}")
+    log(f"examples phase body {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -4131,6 +4340,10 @@ def main(argv=None) -> int:
     for name, count in launch_path(torch).items():
         rows[name]["launches"] += count
     log(f"launch phase {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    for name, count in examples_path(torch, card).items():
+        rows[name]["launches"] += count
+    log(f"examples phase {time.perf_counter() - t0:.3f} s")
     log(f"total {time.perf_counter() - t_start:.3f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

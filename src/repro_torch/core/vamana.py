@@ -168,9 +168,11 @@ PRUNE_SEGMENT = 16  # prune steps between the host's reads of `alive`
 # one thread's prune graphs at a time in the process, captured or
 # replayed: two threads capturing at once (two fleet workers, each on its
 # own stream) invalidated a capture on the H100
-# (cudaErrorStreamCaptureInvalidated), and with captures alone serialized
-# the two workers' builds still failed now and then; launches of threads
-# that use no graph (a server's) run beside a capture (thread_local mode)
+# (cudaErrorStreamCaptureInvalidated); the builds that still failed now
+# and then captured on a side stream that was another worker's stream
+# (:func:`_capture_stream` says why it no longer can be); launches of
+# threads that use no graph (a server's) run beside a capture
+# (thread_local mode)
 _GRAPH_LOCK = threading.RLock()
 
 
@@ -267,7 +269,7 @@ class _CapturedPrune:
             return _prune_setup(self.p_ids, self.cand, self.cand_d,
                                 self.vecs, alpha, self.keep, self.count)
 
-        side = torch.cuda.Stream(dev)
+        side = _capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with _GRAPH_LOCK, torch.cuda.stream(side):
             st = setup()  # warm-up
@@ -307,6 +309,18 @@ class _CapturedPrune:
                 break
             g.replay()
         return self.keep[:n].clone(), self.count.clone()
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream a prune capture runs on: one of torch's
+    high-priority pool.  Every other stream the port makes (a fleet
+    worker's) comes from the default-priority pool, which hands its 32
+    streams out round-robin; a side stream from there is in time another
+    worker's stream, and that worker's launches then go into the capture
+    instead of running (its results unwritten, its host syncs refused).
+    Captures hold :data:`_GRAPH_LOCK`, so no two use a side stream at
+    once."""
+    return torch.cuda.Stream(dev, priority=-1)
 
 
 @contextlib.contextmanager

@@ -95,6 +95,36 @@ def recall_at(found_ids: np.ndarray, gt: np.ndarray, k: int) -> float:
     return hits / (len(gt) * k)
 
 
+def near_tie_breaks(queries, data, got, want, *, rtol: float,
+                    atol: float = 0.0, metric: str = "l2") -> torch.Tensor:
+    """Where two id lists of one search disagree by more than a near-tie:
+    a bool tensor shaped like ``got``, True at each position whose ids
+    differ and either one is -1 (a missing result) or their exact float64
+    distances to the row's query differ by more than ``atol + rtol ·
+    |d(want)|``.  A summation order may flip a near-tie, so lists that
+    differ at no True position answer the queries alike.  Tensors (on the
+    device of ``got``) or numpy arrays."""
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    dev = got.device
+    q = torch.as_tensor(queries).to(dev)
+    x = torch.as_tensor(data).to(dev)
+    want = want.to(dev)
+    out = torch.zeros(got.shape, dtype=torch.bool, device=dev)
+    rows, cols = torch.nonzero(got != want, as_tuple=True)
+    if rows.numel() == 0:
+        return out
+    a, b = got[rows, cols].long(), want[rows, cols].long()
+    missing = (a < 0) | (b < 0)
+    xa, xb = x[a.clamp_min(0)].double(), x[b.clamp_min(0)].double()
+    qd = q[rows].double()
+    if metric == "ip":
+        da, db = -(xa * qd).sum(dim=1), -(xb * qd).sum(dim=1)
+    else:
+        da, db = ((xa - qd) ** 2).sum(dim=1), ((xb - qd) ** 2).sum(dim=1)
+    out[rows, cols] = missing | ((da - db).abs() > atol + rtol * db.abs())
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class DatasetSpec:
     name: str
