@@ -8,7 +8,10 @@ detour counts are a batched ``torch.matmul`` on the same device, as the
 reference leaves them to XLA outside any Pallas kernel; the pruning and
 the reverse-edge fill are numpy, as in the reference.  ``reference=True``
 runs the reference's per-node seed loops for the reverse fill and the row
-dedup instead (bit-identical output; the seed-loop baseline).
+dedup instead (bit-identical output; the seed-loop baseline).  Under an
+enabled tracer a shard build records ``shard.knn`` and ``shard.prune``, and
+the prune its three steps (``prune.detour``, ``prune.select``,
+``prune.dedup``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import torch
 from repro_torch.configs.base import IndexConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.telemetry import current_tracer
+from repro_torch.telemetry.trace import NULL_SPAN
 
 
 @dataclasses.dataclass
@@ -179,51 +184,65 @@ def optimize_graph(
     with the fewest detours, then fill with reverse edges (CAGRA §4.2).
     ``reference=True`` takes the per-node seed loops (same output)."""
     dev = resolve_device(device)
+    tr = current_tracer()
+    on = tr.enabled
     n, L = nbrs.shape
-    x = torch.from_numpy(np.ascontiguousarray(vectors, np.float32)).to(dev)
     fwd_keep = R - R // 2
     n_dist = 0
-    counts = np.empty((n, L), np.int64)
-    safe_nbrs = torch.from_numpy(np.maximum(nbrs, 0).astype(np.int64)).to(dev)
-    dists_t = torch.from_numpy(np.ascontiguousarray(dists, np.float32)).to(dev)
-    for s in range(0, n, node_block):
-        e = min(s + node_block, n)
-        c, nd = _detour_counts(x[safe_nbrs[s:e]], dists_t[s:e], metric)
-        counts[s:e] = c.cpu().numpy()
-        n_dist += int(nd)
-    # stable: prefer fewer detours, break ties by distance rank (ascending)
-    order = np.argsort(counts, axis=1, kind="stable")
-    fwd = np.take_along_axis(nbrs, order[:, :fwd_keep], axis=1)  # [n, R/2]
+    with tr.span("prune.detour") if on else NULL_SPAN:
+        x = torch.from_numpy(np.ascontiguousarray(vectors, np.float32)).to(dev)
+        counts = np.empty((n, L), np.int64)
+        safe_nbrs = torch.from_numpy(
+            np.maximum(nbrs, 0).astype(np.int64)).to(dev)
+        dists_t = torch.from_numpy(
+            np.ascontiguousarray(dists, np.float32)).to(dev)
+        for s in range(0, n, node_block):
+            e = min(s + node_block, n)
+            c, nd = _detour_counts(x[safe_nbrs[s:e]], dists_t[s:e], metric)
+            counts[s:e] = c.cpu().numpy()
+            n_dist += int(nd)
+    with tr.span("prune.select") if on else NULL_SPAN:
+        # stable: prefer fewer detours, break ties by distance rank
+        order = np.argsort(counts, axis=1, kind="stable")
+        fwd = np.take_along_axis(nbrs, order[:, :fwd_keep], axis=1)
 
-    # reverse edges: v gains u for every kept forward edge u→v
-    src = np.repeat(np.arange(n), fwd_keep)
-    dst = fwd.reshape(-1)
-    ok = dst >= 0
-    src, dst = src[ok], dst[ok]
-    order2 = np.argsort(dst, kind="stable")
-    dst_s, src_s = dst[order2], src[order2]
-    starts = np.searchsorted(dst_s, np.arange(n), side="left")
-    ends = np.searchsorted(dst_s, np.arange(n), side="right")
-    fill_rev = _fill_reverse_loop if reference else _fill_reverse
-    rev = fill_rev(src_s, starts, ends, n, R // 2)
+        # reverse edges: v gains u for every kept forward edge u→v
+        src = np.repeat(np.arange(n), fwd_keep)
+        dst = fwd.reshape(-1)
+        ok = dst >= 0
+        src, dst = src[ok], dst[ok]
+        order2 = np.argsort(dst, kind="stable")
+        dst_s, src_s = dst[order2], src[order2]
+        starts = np.searchsorted(dst_s, np.arange(n), side="left")
+        ends = np.searchsorted(dst_s, np.arange(n), side="right")
+        fill_rev = _fill_reverse_loop if reference else _fill_reverse
+        rev = fill_rev(src_s, starts, ends, n, R // 2)
 
-    graph = np.concatenate([fwd, rev], axis=1)  # [n, R]
-    # dedup per row (forward ∪ reverse may overlap); refill from leftover kNN
-    leftover = np.take_along_axis(nbrs, order[:, fwd_keep:], axis=1)
-    dedup = _dedup_refill_loop if reference else _dedup_refill_rows
-    graph = dedup(graph, leftover, R)
-    return graph.astype(np.int32), n_dist
+    with tr.span("prune.dedup") if on else NULL_SPAN:
+        graph = np.concatenate([fwd, rev], axis=1)  # [n, R]
+        # dedup per row (forward ∪ reverse may overlap); refill from the
+        # leftover kNN
+        leftover = np.take_along_axis(nbrs, order[:, fwd_keep:], axis=1)
+        dedup = _dedup_refill_loop if reference else _dedup_refill_rows
+        graph = dedup(graph, leftover, R).astype(np.int32)
+    return graph, n_dist
 
 
 def build_shard_index(vectors: np.ndarray, cfg: IndexConfig, *,
                       reference: bool = False, device=None) -> ShardIndex:
     """Full CAGRA-style build of one shard; ``reference=True`` routes
     :func:`optimize_graph` through its seed loops (same graph)."""
-    nbrs, dists, nd1 = build_knn_graph(
-        vectors, cfg.build_degree, metric=cfg.metric, device=device
-    )
-    graph, nd2 = optimize_graph(
-        vectors, nbrs, dists, cfg.degree, metric=cfg.metric,
-        reference=reference, device=device
-    )
+    tr = current_tracer()
+    on = tr.enabled
+    n = len(vectors)
+    with (tr.span("shard.knn", n=n, k=min(cfg.build_degree + 1, n))
+          if on else NULL_SPAN):
+        nbrs, dists, nd1 = build_knn_graph(
+            vectors, cfg.build_degree, metric=cfg.metric, device=device
+        )
+    with tr.span("shard.prune") if on else NULL_SPAN:
+        graph, nd2 = optimize_graph(
+            vectors, nbrs, dists, cfg.degree, metric=cfg.metric,
+            reference=reference, device=device
+        )
     return ShardIndex(graph=graph, n_distance_computations=nd1 + nd2)

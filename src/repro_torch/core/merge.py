@@ -9,7 +9,9 @@ Every edge is translated through the shard's (local → global) manifest, so
 the merge output is a pure function of the edge *set*, never of row order.
 ``BufferedShardReader`` is the paper's buffered disk path with its state
 check; ``reference=True`` runs the per-gid seed loop; ``connectivity_stats``
-measures what the merge is for, global reachability.
+measures what the merge is for, global reachability.  Under an enabled
+tracer each step of the vectorized union and the medoid probe is a
+``merge.*`` span, with the edges it saw, kept unique and kept as args.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import numpy as np
 
 from repro_torch.core.cagra import ShardIndex
 from repro_torch.core.partition import Shard
+from repro_torch.telemetry import current_tracer
+from repro_torch.telemetry.trace import NULL_SPAN
 
 
 @dataclasses.dataclass
@@ -169,30 +173,42 @@ def _union_dedup_cap(
     ``degree`` otherwise.  The output is a pure function of the edge *set*
     (§V-C's permutation invariance).
     """
-    graph = np.full((n_total, degree), -1, np.int32)
-    gids, nbrs = _edge_list(shards, indexes)
+    tr = current_tracer()
+    on = tr.enabled
+    with tr.span("merge.edge_list") if on else NULL_SPAN as sp:
+        gids, nbrs = _edge_list(shards, indexes)
+        if on:
+            sp.set(n_edges=int(gids.size))
     if gids.size == 0:
-        return graph
+        return np.full((n_total, degree), -1, np.int32)
     # dedup: stable (gid, nbr) sort keeps the earliest appended copy first
-    order = np.lexsort((nbrs, gids))
-    sg, sn = gids[order], nbrs[order]
-    first = np.ones(len(sg), bool)
-    first[1:] = (sg[1:] != sg[:-1]) | (sn[1:] != sn[:-1])
-    ug, un, upos = sg[first], sn[first], order[first]
+    with tr.span("merge.dedup_sort") if on else NULL_SPAN as sp:
+        order = np.lexsort((nbrs, gids))
+        sg, sn = gids[order], nbrs[order]
+        first = np.ones(len(sg), bool)
+        first[1:] = (sg[1:] != sg[:-1]) | (sn[1:] != sn[:-1])
+        ug, un, upos = sg[first], sn[first], order[first]
+        if on:
+            sp.set(n_unique=int(ug.size))
     # cap: order each gid's unique neighbors by (distance, first-seen) or
     # (first-seen) alone, then keep ranks < degree
     if data is not None:
-        d = _segment_distances(data, ug, un)
-        sel = np.lexsort((upos, d, ug))
-    else:
-        sel = np.lexsort((upos, ug))
-    g2, n2 = ug[sel], un[sel]
-    idx = np.arange(len(sel))
-    seg_start = np.ones(len(sel), bool)
-    seg_start[1:] = g2[1:] != g2[:-1]
-    rank = idx - np.maximum.accumulate(np.where(seg_start, idx, 0))
-    keep = rank < degree
-    graph[g2[keep], rank[keep]] = n2[keep].astype(np.int32)
+        with tr.span("merge.distances") if on else NULL_SPAN:
+            d = _segment_distances(data, ug, un)
+    with tr.span("merge.cap_sort") if on else NULL_SPAN:
+        sel = (np.lexsort((upos, d, ug)) if data is not None
+               else np.lexsort((upos, ug)))
+        g2, n2 = ug[sel], un[sel]
+        idx = np.arange(len(sel))
+        seg_start = np.ones(len(sel), bool)
+        seg_start[1:] = g2[1:] != g2[:-1]
+        rank = idx - np.maximum.accumulate(np.where(seg_start, idx, 0))
+        keep = rank < degree
+    with tr.span("merge.scatter") if on else NULL_SPAN as sp:
+        graph = np.full((n_total, degree), -1, np.int32)
+        graph[g2[keep], rank[keep]] = n2[keep].astype(np.int32)
+        if on:
+            sp.set(n_kept=int(np.count_nonzero(keep)))
     return graph
 
 
@@ -280,11 +296,14 @@ def merge_shard_indexes(
 
     medoid = 0
     if data is not None:
+        tr = current_tracer()
         # one stratified gather serves both the mean and the medoid probe
-        probe_ids = np.linspace(0, n_total - 1, min(n_total, 8192)).astype(int)
-        probe = np.asarray(data[probe_ids], np.float32)
-        mean = probe.mean(axis=0)
-        medoid = int(probe_ids[((probe - mean) ** 2).sum(axis=1).argmin()])
+        with tr.span("merge.medoid") if tr.enabled else NULL_SPAN:
+            probe_ids = np.linspace(0, n_total - 1,
+                                    min(n_total, 8192)).astype(int)
+            probe = np.asarray(data[probe_ids], np.float32)
+            dist = ((probe - probe.mean(axis=0)) ** 2).sum(axis=1)
+            medoid = int(probe_ids[dist.argmin()])
     return GlobalIndex(graph=graph, medoid=medoid, n_vectors=n_total)
 
 

@@ -23,6 +23,7 @@ from repro_torch.search.types import (DEFAULT_RERANK, MergedTopology,
                                       as_topology, is_live, parse_dtype,
                                       parse_nprobe)
 from repro_torch.telemetry import current_tracer
+from repro_torch.telemetry.trace import NULL_SPAN
 
 
 @runtime_checkable
@@ -138,33 +139,45 @@ def search(
     unless ``"cpu"`` is given.
 
     Returns ``(ids [Q, k] int64, SearchStats)`` stamped with ``n_queries``.
+
+    Under an enabled tracer the call is one ``search.engine`` span whose
+    children are its host and device phases in order: ``search.prep``,
+    ``search.upload`` (the device copy of the storage, a cache lookup, and
+    the queries), ``search.launch``, ``search.wait``, ``search.finish``.  A
+    merged call has two ``search.prep`` (the checks here, then the entry
+    points) and one of each other; a staged one adds a ``search.prep`` for
+    its quantized view.  A split search adds its setup's ``search.prep``,
+    ``search.route``, and a ``search.prep`` (the shard's rows),
+    ``search.upload`` and ``search.launch`` a probed shard.
+    Untraced, the tracer is read for its ``enabled`` flag alone.
     """
-    if width < k:
-        raise ValueError(
-            f"width ({width}) must be >= k ({k}): the candidate list bounds "
-            "how many results a beam search can return"
-        )
-    parse_nprobe(nprobe)
-    parse_dtype(dtype)
-    if isinstance(rerank, bool) or int(rerank) != rerank or rerank < 1:
-        raise ValueError(
-            f"rerank must be a positive int (re-rank rerank·k candidates), "
-            f"got {rerank!r}"
-        )
-    rerank = int(rerank)
-    dev = resolve_device(device)
-    topo = as_topology(index_or_shards, data, metric=metric or "l2")
-    if metric is not None and topo.metric != metric:
-        topo = dataclasses.replace(topo, metric=metric)
-    impl = get_backend(backend)
-    queries = np.asarray(queries, np.float32)
     tr = current_tracer()
-    if tr.enabled:  # the gate keeps the untraced path allocation-free
-        span = tr.span("search.engine", backend=backend,
-                       n_queries=len(queries), k=k, dtype=dtype)
-    else:
-        span = tr.span()
-    with span:
+    on = tr.enabled
+    with (tr.span("search.engine", backend=backend, k=k, dtype=dtype)
+          if on else NULL_SPAN) as engine:
+        with tr.span("search.prep") if on else NULL_SPAN:
+            if width < k:
+                raise ValueError(
+                    f"width ({width}) must be >= k ({k}): the candidate "
+                    "list bounds how many results a beam search can return"
+                )
+            parse_nprobe(nprobe)
+            parse_dtype(dtype)
+            if (isinstance(rerank, bool) or int(rerank) != rerank
+                    or rerank < 1):
+                raise ValueError(
+                    f"rerank must be a positive int (re-rank rerank·k "
+                    f"candidates), got {rerank!r}"
+                )
+            rerank = int(rerank)
+            dev = resolve_device(device)
+            topo = as_topology(index_or_shards, data, metric=metric or "l2")
+            if metric is not None and topo.metric != metric:
+                topo = dataclasses.replace(topo, metric=metric)
+            impl = get_backend(backend)
+            queries = np.asarray(queries, np.float32)
+        if on:
+            engine.set(n_queries=len(queries))
         if isinstance(topo, MergedTopology):
             ids, stats = impl.search_merged(
                 topo, queries, k, width=width, n_entries=n_entries,
@@ -175,5 +188,5 @@ def search(
                 topo, queries, k, width=width, n_entries=n_entries,
                 nprobe=nprobe, dtype=dtype, rerank=rerank, device=dev,
             )
-    stats.n_queries = len(queries)
+        stats.n_queries = len(queries)
     return ids, stats

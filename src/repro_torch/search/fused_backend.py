@@ -43,7 +43,9 @@ from repro_torch.search.types import (DEFAULT_RERANK, MergedTopology,
                                       NprobeSpec, QuantSpec, SearchStats,
                                       ShardTopology, is_live, run_merged,
                                       run_split)
+from repro_torch.telemetry import current_tracer
 from repro_torch.telemetry.metrics import current_registry
+from repro_torch.telemetry.trace import NULL_SPAN
 
 # a few topologies × a few dtype stages, small enough that abandoned
 # topologies don't pin device memory; warm() raises it to the largest
@@ -253,23 +255,31 @@ def _launch(
     (:func:`~repro_torch.search.types.run_split`).  A build's live state
     is searched and read at once, as :func:`fused_beam_search` does."""
     n_iters = _beam.default_n_iters(width) if n_iters is None else n_iters
-    prep = _prepared(data, graph, quant, device)
-    q, scale, zp = _prep_queries(queries, quant, device)
-    ids, ds, n_dist, hops, _ = _beam.fused_beam(
-        prep.x, prep.graph,
-        _prep_entries(entries, width, device, prep.x.shape[0]), q, k,
-        width=width, n_iters=n_iters, expand=expand, metric=metric,
-        scale=scale, zp=zp, aux=prep.aux,
-    )
-    staged = quant is not None
-    if is_live(graph):
-        nd = _sum(n_dist, n_real)
-        stats = SearchStats(
-            n_distance_computations=nd, n_hops=_sum(hops, n_real),
-            n_quantized_distance_computations=nd if staged else 0,
+    tr = current_tracer()
+    on = tr.enabled
+    with tr.span("search.upload") if on else NULL_SPAN:
+        prep = _prepared(data, graph, quant, device)  # uploads on a miss
+        q, scale, zp = _prep_queries(queries, quant, device)
+        e = _prep_entries(entries, width, device, prep.x.shape[0])
+    live = is_live(graph)
+    with (tr.span("search.launch", n_queries=len(q), width=width)
+          if on else NULL_SPAN):
+        ids, ds, n_dist, hops, _ = _beam.fused_beam(
+            prep.x, prep.graph, e, q, k, width=width, n_iters=n_iters,
+            expand=expand, metric=metric, scale=scale, zp=zp, aux=prep.aux,
         )
+        if not live:
+            host = _to_host(ids, ds, n_dist[:n_real].sum(),
+                            hops[:n_real].sum())
+    staged = quant is not None
+    if live:
+        with tr.span("search.wait") if on else NULL_SPAN:  # reads sync
+            nd = _sum(n_dist, n_real)
+            stats = SearchStats(
+                n_distance_computations=nd, n_hops=_sum(hops, n_real),
+                n_quantized_distance_computations=nd if staged else 0,
+            )
         return lambda: (ids.long(), ds, stats)
-    host = _to_host(ids, ds, n_dist[:n_real].sum(), hops[:n_real].sum())
 
     def finish():
         ids_h, ds_h, nd, n_hops = host
@@ -301,9 +311,13 @@ def fused_beam_search(
     finish = _launch(data, graph, entries, queries, k, width=width,
                      n_iters=n_iters, expand=expand, metric=metric,
                      n_real=n_real, quant=quant, device=device)
+    tr = current_tracer()
+    on = tr.enabled
     if not is_live(graph):
-        sync(device)
-    return finish()
+        with tr.span("search.wait") if on else NULL_SPAN:
+            sync(device)
+    with tr.span("search.finish") if on else NULL_SPAN:
+        return finish()
 
 
 def _fused_merged_staged(topo: MergedTopology, entries, queries, k: int,
@@ -314,26 +328,35 @@ def _fused_merged_staged(topo: MergedTopology, entries, queries, k: int,
     dispatch; the same ids and stats as run_merged's beam +
     :func:`repro_torch.kernels.ops.rerank_exact` composition."""
     n_iters = _beam.default_n_iters(width) if n_iters is None else n_iters
-    store, spec = topo.quant_view(dtype)
-    quant = spec if spec is not None else dtype
-    prep = _prepared(store, topo.index.graph, quant, device)
-    exact = _prepared(topo.data, topo.index.graph, None, device)
-    q, scale, zp = _prep_queries(queries, quant, device)
-    qf = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(device)
-    ids, _, n_dist, hops, n_rr = _beam.fused_beam(
-        prep.x, prep.graph,
-        _prep_entries(entries, width, device, prep.x.shape[0]), q, kq,
-        width=width, n_iters=n_iters, metric=topo.metric, scale=scale, zp=zp,
-        x_exact=exact.x, q_exact=qf, rerank_k=k, aux=prep.aux,
-    )
-    nd, nrr = _sum(n_dist), _sum(n_rr)
-    stats = SearchStats(
-        n_distance_computations=nd + nrr,
-        n_hops=_sum(hops),
-        n_quantized_distance_computations=nd,
-        n_rerank_distance_computations=nrr,
-    )
-    return ids.cpu().numpy().astype(np.int64), stats
+    tr = current_tracer()
+    on = tr.enabled
+    with tr.span("search.prep") if on else NULL_SPAN:
+        store, spec = topo.quant_view(dtype)
+        quant = spec if spec is not None else dtype
+    with tr.span("search.upload") if on else NULL_SPAN:
+        prep = _prepared(store, topo.index.graph, quant, device)
+        exact = _prepared(topo.data, topo.index.graph, None, device)
+        q, scale, zp = _prep_queries(queries, quant, device)
+        qf = torch.from_numpy(
+            np.ascontiguousarray(queries, np.float32)).to(device)
+        e = _prep_entries(entries, width, device, prep.x.shape[0])
+    with (tr.span("search.launch", n_queries=len(q), width=width)
+          if on else NULL_SPAN):
+        ids, _, n_dist, hops, n_rr = _beam.fused_beam(
+            prep.x, prep.graph, e, q, kq, width=width, n_iters=n_iters,
+            metric=topo.metric, scale=scale, zp=zp, x_exact=exact.x,
+            q_exact=qf, rerank_k=k, aux=prep.aux,
+        )
+    with tr.span("search.wait") if on else NULL_SPAN:  # the reads sync
+        nd, nrr, n_hops = _sum(n_dist), _sum(n_rr), _sum(hops)
+    with tr.span("search.finish") if on else NULL_SPAN:
+        stats = SearchStats(
+            n_distance_computations=nd + nrr,
+            n_hops=n_hops,
+            n_quantized_distance_computations=nd,
+            n_rerank_distance_computations=nrr,
+        )
+        return ids.cpu().numpy().astype(np.int64), stats
 
 
 # run_merged hands staged merged searches back through this hook

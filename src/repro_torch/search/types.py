@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.telemetry import record_stage, stage_active
+from repro_torch.telemetry import current_tracer, record_stage, stage_active
+from repro_torch.telemetry.trace import NULL_SPAN
 
 if typing.TYPE_CHECKING:  # import-time independence from repro_torch.core
     from repro_torch.core.merge import GlobalIndex
@@ -439,10 +440,13 @@ def run_merged(beam_fn, topo: MergedTopology, queries, k: int, *,
     ``(distance, id)`` tie-break, and the same stats accounting as the
     host epilogue below.
     """
-    entries = (
-        topo.index.entry_points(n_entries) if n_entries > 1
-        else np.asarray([topo.index.medoid])
-    )
+    tr = current_tracer()
+    on = tr.enabled
+    with tr.span("search.prep") if on else NULL_SPAN:
+        entries = (
+            topo.index.entry_points(n_entries) if n_entries > 1
+            else np.asarray([topo.index.medoid])
+        )
     tomb = topo.tombstones
     if dtype == "f32":
         # with tombstones, widen the request so masking dead candidates
@@ -454,7 +458,8 @@ def run_merged(beam_fn, topo: MergedTopology, queries, k: int, *,
             width=width, n_iters=n_iters, metric=topo.metric, device=device,
         )
         if tomb is not None:
-            ids = drop_tombstones(ids, tomb, k)
+            with tr.span("search.finish") if on else NULL_SPAN:
+                ids = drop_tombstones(ids, tomb, k)
         return ids, stats
     kq = min(rerank * k, width)
     fused = getattr(beam_fn, "fused_merged", None)
@@ -463,22 +468,26 @@ def run_merged(beam_fn, topo: MergedTopology, queries, k: int, *,
         # back to the host epilogue below, which masks before re-ranking
         return fused(topo, entries, queries, k, kq, width=width,
                      n_iters=n_iters, dtype=dtype, device=device)
-    store, spec = topo.quant_view(dtype)
+    with tr.span("search.prep") if on else NULL_SPAN:
+        store, spec = topo.quant_view(dtype)
     cand, _, stats = beam_fn(
         store, topo.index.graph, entries, queries, kq,
         width=width, n_iters=n_iters, metric=topo.metric,
         quant=spec if spec is not None else dtype, device=device,
     )
-    if tomb is not None:
-        # rerank_exact tolerates -1 candidates (scored at inf, emitted as
-        # -1 pad), so masking here keeps dead ids out of the final top-k
-        cand = np.where(
-            (np.asarray(cand, np.int64) >= 0)
-            & tomb[np.maximum(cand, 0)], -1, cand,
+    with tr.span("search.finish") if on else NULL_SPAN:
+        if tomb is not None:
+            # rerank_exact tolerates -1 candidates (scored at inf, emitted
+            # as -1 pad), so masking here keeps dead ids out of the final
+            # top-k
+            cand = np.where(
+                (np.asarray(cand, np.int64) >= 0)
+                & tomb[np.maximum(cand, 0)], -1, cand,
+            )
+        ids, _, n_scored = _rerank_exact_timed(
+            topo.data, cand, np.asarray(queries, np.float32), k,
+            topo.metric,
         )
-    ids, _, n_scored = _rerank_exact_timed(
-        topo.data, cand, np.asarray(queries, np.float32), k, topo.metric,
-    )
     stats.n_distance_computations += n_scored
     stats.n_rerank_distance_computations += n_scored
     return ids, stats
@@ -685,6 +694,61 @@ def _bucket_size(m: int) -> int:
     return ((m + step - 1) // step) * step
 
 
+def _route(topo: ShardTopology, queries: np.ndarray, live: list, mode: str,
+           count: int, margin: float, dtype: str, stats: SearchStats,
+           device) -> np.ndarray:
+    """[Q, P] positions into ``live`` of the shards each query probes,
+    nearest first (-1 in unused slots of ``"auto"``), from one batched
+    query×centroid tile; the tile's distances are counted in ``stats``."""
+    nq, n_live = len(queries), len(live)
+    if dtype == "uint8":
+        # quantized routing tile + certified-exact fallback: queries
+        # whose decision the code-domain error bound cannot certify
+        # (or that clip outside the spec's range) rescore their row in
+        # f32, so routing decisions are identical to the f32 tile
+        codes, spec, resid = topo.centroid_quant()
+        qc, qerr, amb = _query_centroid_distances_u8(
+            queries, codes[live], spec, resid[live], topo.metric, device
+        )
+        stats.n_distance_computations += nq * n_live
+        stats.n_quantized_distance_computations += nq * n_live
+        pre = np.argsort(qc, axis=1, kind="stable")
+        amb = amb | _ambiguous_routing(
+            np.take_along_axis(qc, pre, axis=1),
+            np.take_along_axis(qerr, pre, axis=1),
+            mode, count, margin,
+        )
+        n_amb = int(amb.sum())
+        if n_amb:
+            cent = np.asarray(topo.centroids, np.float32)[live]
+            qc[amb] = _query_centroid_distances(
+                queries[amb], cent, topo.metric, device
+            )
+            stats.n_distance_computations += n_amb * n_live
+    else:
+        cent = np.asarray(topo.centroids, np.float32)[live]
+        qc = _query_centroid_distances(queries, cent, topo.metric, device)
+        stats.n_distance_computations += nq * n_live
+    # [Q, n_live] positions into `live`, nearest shard first
+    order = np.argsort(qc, axis=1, kind="stable")
+    if mode == "fixed":
+        probes = order[:, :min(count, n_live)]
+    else:
+        # adaptive: probe every shard whose centroid distance is within
+        # `margin` of the query's nearest (d <= d1 + (margin-1)·|d1|,
+        # which is margin·d1 for the non-negative squared-L2 case and
+        # degrades gracefully for negated inner products); distances
+        # are sorted, so the kept set is a per-query prefix and -1
+        # marks each query's unused probe slots
+        sd = np.take_along_axis(qc, order, axis=1)
+        d1 = sd[:, :1]
+        keep = sd <= d1 + (margin - 1.0) * np.abs(d1)
+        keep[:, 0] = True  # the nearest shard is always probed
+        probes = np.where(keep, order, -1)
+        probes = probes[:, : int(keep.sum(axis=1).max())]
+    return probes
+
+
 def run_split(beam_fn, topo: ShardTopology, queries, k: int, *,
               width: int, n_iters: int | None = None,
               nprobe: NprobeSpec = None, bucket: bool = False,
@@ -733,134 +797,99 @@ def run_split(beam_fn, topo: ShardTopology, queries, k: int, *,
     keeps the f32 tile (the tile is compute-shaped, and bf16's win is
     storage streaming, not the tiny centroid set).
     """
-    queries = np.asarray(queries, np.float32)
-    nq = len(queries)
-    stats = SearchStats()
-    mode, count, margin = parse_nprobe(nprobe)
-    live = [s for s, ids in enumerate(topo.shard_ids) if len(ids) > 0]
-    if not live or nq == 0:
-        return np.full((nq, k), -1, np.int64), stats
+    tr = current_tracer()
+    on = tr.enabled
+    with tr.span("search.prep") if on else NULL_SPAN:
+        queries = np.asarray(queries, np.float32)
+        nq = len(queries)
+        stats = SearchStats()
+        mode, count, margin = parse_nprobe(nprobe)
+        live = [s for s, ids in enumerate(topo.shard_ids) if len(ids) > 0]
+        if not live or nq == 0:
+            return np.full((nq, k), -1, np.int64), stats
+        entries = topo.shard_entries()
+        staged = dtype != "f32"
+        tomb = topo.tombstones
+        kq = k  # per-shard pool width (candidates per probed shard)
+        if staged or tomb is not None:
+            # staged dtypes widen for the re-rank epilogue; tombstones
+            # widen so masking dead candidates still leaves k live ones
+            # after the merge
+            kq = min(rerank * k, width)
+        if staged:
+            shard_store = topo.shard_quant(dtype)
+        else:
+            f32_store = topo.shard_store()  # cached: stable storage identity
     n_live = len(live)
-    route = mode != "scatter" and topo.centroids is not None
-    if route:
-        if dtype == "uint8":
-            # quantized routing tile + certified-exact fallback: queries
-            # whose decision the code-domain error bound cannot certify
-            # (or that clip outside the spec's range) rescore their row in
-            # f32, so routing decisions are identical to the f32 tile
-            codes, spec, resid = topo.centroid_quant()
-            qc, qerr, amb = _query_centroid_distances_u8(
-                queries, codes[live], spec, resid[live], topo.metric, device
-            )
-            stats.n_distance_computations += nq * n_live
-            stats.n_quantized_distance_computations += nq * n_live
-            pre = np.argsort(qc, axis=1, kind="stable")
-            amb = amb | _ambiguous_routing(
-                np.take_along_axis(qc, pre, axis=1),
-                np.take_along_axis(qerr, pre, axis=1),
-                mode, count, margin,
-            )
-            n_amb = int(amb.sum())
-            if n_amb:
-                cent = np.asarray(topo.centroids, np.float32)[live]
-                qc[amb] = _query_centroid_distances(
-                    queries[amb], cent, topo.metric, device
-                )
-                stats.n_distance_computations += n_amb * n_live
-        else:
-            cent = np.asarray(topo.centroids, np.float32)[live]
-            qc = _query_centroid_distances(queries, cent, topo.metric, device)
-            stats.n_distance_computations += nq * n_live
-        # [Q, n_live] positions into `live`, nearest shard first
-        order = np.argsort(qc, axis=1, kind="stable")
-        if mode == "fixed":
-            probes = order[:, :min(count, n_live)]
-        else:
-            # adaptive: probe every shard whose centroid distance is within
-            # `margin` of the query's nearest (d <= d1 + (margin-1)·|d1|,
-            # which is margin·d1 for the non-negative squared-L2 case and
-            # degrades gracefully for negated inner products); distances
-            # are sorted, so the kept set is a per-query prefix and -1
-            # marks each query's unused probe slots
-            sd = np.take_along_axis(qc, order, axis=1)
-            d1 = sd[:, :1]
-            keep = sd <= d1 + (margin - 1.0) * np.abs(d1)
-            keep[:, 0] = True  # the nearest shard is always probed
-            probes = np.where(keep, order, -1)
-            probes = probes[:, : int(keep.sum(axis=1).max())]
+    if mode != "scatter" and topo.centroids is not None:
+        with tr.span("search.route") if on else NULL_SPAN:
+            probes = _route(topo, queries, live, mode, count, margin, dtype,
+                            stats, device)
     else:
         probes = np.broadcast_to(
             np.arange(n_live), (nq, n_live)
         )
-    n_probe = probes.shape[1]
-    entries = topo.shard_entries()
-    staged = dtype != "f32"
-    tomb = topo.tombstones
-    kq = k  # per-shard pool width (candidates per probed shard)
-    if staged or tomb is not None:
-        # staged dtypes widen for the re-rank epilogue; tombstones widen so
-        # masking dead candidates still leaves k live ones after the merge
-        kq = min(rerank * k, width)
-    if staged:
-        shard_store = topo.shard_quant(dtype)
-    else:
-        f32_store = topo.shard_store()  # cached: stable storage identity
-    pool_ids = np.full((nq, n_probe, kq), -1, np.int64)
-    pool_d = np.full((nq, n_probe, kq), np.inf, np.float32)
     # a beam_fn with ``launch`` (the fused engine) queues each shard's
     # search and its copies to the host; one wait then covers them all
     launch = getattr(beam_fn, "launch", None)
+    run = beam_fn if launch is None else launch
     queued = []
     for p, s in enumerate(live):
-        qrows, slots = np.nonzero(probes == p)
-        m = qrows.size
-        if m == 0:
-            continue
-        use_rows = qrows
-        if bucket and m < nq:
-            b = min(_bucket_size(m), nq)
-            if b > m:
-                use_rows = np.resize(qrows, b)  # cycle real rows as padding
-        ids = topo.shard_ids[s]
-        if staged:
-            store, spec = shard_store[s]
-            quant_kw = {"quant": spec if spec is not None else dtype}
-        else:
-            store, quant_kw = f32_store[s], {}
-        args = (store, topo.shard_graphs[s], int(entries[s]),
-                queries[use_rows], min(kq, len(ids)))
-        kw = dict(width=width, n_iters=n_iters, metric=topo.metric,
-                  n_real=m if use_rows is not qrows else None,
-                  device=device, **quant_kw)
-        run = beam_fn if launch is None else launch
+        with tr.span("search.prep") if on else NULL_SPAN:
+            qrows, slots = np.nonzero(probes == p)
+            m = qrows.size
+            if m == 0:
+                continue
+            use_rows = qrows
+            if bucket and m < nq:
+                b = min(_bucket_size(m), nq)
+                if b > m:
+                    use_rows = np.resize(qrows, b)  # cycle real rows
+            ids = topo.shard_ids[s]
+            if staged:
+                store, spec = shard_store[s]
+                quant_kw = {"quant": spec if spec is not None else dtype}
+            else:
+                store, quant_kw = f32_store[s], {}
+            args = (store, topo.shard_graphs[s], int(entries[s]),
+                    queries[use_rows], min(kq, len(ids)))
+            kw = dict(width=width, n_iters=n_iters, metric=topo.metric,
+                      n_real=m if use_rows is not qrows else None,
+                      device=device, **quant_kw)
         queued.append((qrows, slots, ids, run(*args, **kw)))
     if launch is not None:
-        beam_fn.sync(device)
-    for qrows, slots, ids, res in queued:
-        local, ld, s_stats = res() if launch is not None else res
-        m = qrows.size
-        stats += s_stats
-        local, ld = pad_pool(local[:m], ld[:m], kq)
-        gids = np.where(local >= 0, ids[np.maximum(local, 0)], -1)
-        pool_ids[qrows, slots] = gids
-        pool_d[qrows, slots] = np.where(local >= 0, ld, np.inf)
-    flat_ids = pool_ids.reshape(nq, n_probe * kq)
-    flat_d = pool_d.reshape(nq, n_probe * kq)
-    if tomb is not None:
-        dead = (flat_ids >= 0) & tomb[np.maximum(flat_ids, 0)]
-        flat_ids = np.where(dead, -1, flat_ids)
-        flat_d = np.where(dead, np.inf, flat_d)
-    # f32: pool distances are exact, so the merge takes the final top-k
-    # directly; staged: keep kq candidates for the exact re-rank epilogue
-    merged = rerank_shard_pools(flat_ids, flat_d, kq if staged else k)
-    if not staged:
-        return merged, stats
-    # one exact-f32 epilogue per query over the merged quantized top-kq
-    out, _, n_scored = _rerank_exact_timed(
-        topo.data, merged, queries, k, topo.metric
-    )
-    stats.n_distance_computations += n_scored
-    stats.n_rerank_distance_computations += n_scored
+        with tr.span("search.wait") if on else NULL_SPAN:
+            beam_fn.sync(device)
+    with tr.span("search.finish") if on else NULL_SPAN:
+        n_probe = probes.shape[1]
+        pool_ids = np.full((nq, n_probe, kq), -1, np.int64)
+        pool_d = np.full((nq, n_probe, kq), np.inf, np.float32)
+        for qrows, slots, ids, res in queued:
+            local, ld, s_stats = res() if launch is not None else res
+            m = qrows.size
+            stats += s_stats
+            local, ld = pad_pool(local[:m], ld[:m], kq)
+            gids = np.where(local >= 0, ids[np.maximum(local, 0)], -1)
+            pool_ids[qrows, slots] = gids
+            pool_d[qrows, slots] = np.where(local >= 0, ld, np.inf)
+        flat_ids = pool_ids.reshape(nq, n_probe * kq)
+        flat_d = pool_d.reshape(nq, n_probe * kq)
+        if tomb is not None:
+            dead = (flat_ids >= 0) & tomb[np.maximum(flat_ids, 0)]
+            flat_ids = np.where(dead, -1, flat_ids)
+            flat_d = np.where(dead, np.inf, flat_d)
+        # f32: pool distances are exact, so the merge takes the final top-k
+        # directly; staged: keep kq candidates for the exact re-rank
+        # epilogue
+        merged = rerank_shard_pools(flat_ids, flat_d, kq if staged else k)
+        if not staged:
+            return merged, stats
+        # one exact-f32 epilogue per query over the merged quantized top-kq
+        out, _, n_scored = _rerank_exact_timed(
+            topo.data, merged, queries, k, topo.metric
+        )
+        stats.n_distance_computations += n_scored
+        stats.n_rerank_distance_computations += n_scored
     return out, stats
 
 

@@ -49,7 +49,7 @@ import time
 from typing import Any, Callable
 
 __all__ = [
-    "ManualClock", "NullTracer", "NULL_TRACER", "Span", "Tracer",
+    "ManualClock", "NullTracer", "NULL_SPAN", "NULL_TRACER", "Span", "Tracer",
     "collect_stages", "current_tracer", "record_stage", "set_tracer",
     "use_tracer",
 ]
@@ -119,7 +119,10 @@ class Span:
 
 
 class _NullSpan:
-    """The reusable do-nothing span (singleton — never allocates)."""
+    """The reusable do-nothing span (singleton — never allocates): what a
+    gated call site enters instead of ``tracer.span(...)`` when
+    ``tracer.enabled`` is false, so the untraced path calls no tracer
+    method."""
 
     __slots__ = ()
 
@@ -133,7 +136,7 @@ class _NullSpan:
         return self
 
 
-_NULL_SPAN = _NullSpan()
+NULL_SPAN = _NullSpan()
 
 
 class NullTracer:
@@ -147,7 +150,7 @@ class NullTracer:
         return 0.0
 
     def span(self, *a: Any, **kw: Any) -> _NullSpan:
-        return _NULL_SPAN
+        return NULL_SPAN
 
     def instant(self, *a: Any, **kw: Any) -> None:
         return None
