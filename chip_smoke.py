@@ -5,14 +5,15 @@
                           [--fleet-n 200000]
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the build of the four CUDA sources (one ``nvcc`` per source, in
+   and the build of the five CUDA sources (one ``nvcc`` per source, in
    parallel, into ``build/repro_torch_kernels``).
 2. ANN main path, with every launch counter zeroed just before and read
    just after: ``make_clustered(n, 128, n_queries, seed=0)`` (SIFT1M/
    BIGANN-1M's shape, ground truth from K4), ``build_scalegann`` with the
    ``IndexConfig`` defaults (16 clusters, R=64, L=128, ε=1.2, ω=2), merged
    search at k=10, width=64 in f32, bf16 and uint8, and routed split search
-   with nprobe=2 and "auto" in f32 and uint8.  K1–K4 must have launched.
+   with nprobe=2 and "auto" in f32 and uint8.  K1–K4 and the merge
+   kernel must have launched.
 3. Each ANN kernel against its plain PyTorch version on the card, at the
    main path's shapes.  K1 at every operand shape the main path gave it
    (tallied during step 2 with the kernel each call took, which must be the
@@ -26,7 +27,9 @@
    ragged N, M and D (uint8 L2 bit-exact in each).  K4 on integer points
    with duplicates (f32-exact distances, ids equal), at ragged N, k > N,
    k = 1, k = 256, IP and ground truth's last block (1808 x 1M, k=10), then
-   at one shard's shape with k=129 beside cdist + topk; K3 on the built
+   at one shard's shape with k=129 beside cdist + topk; the merge kernel
+   on step 2's own row table against its plain version (graph and unique
+   counts equal, and equal to the build's graph), timed; K3 on the built
    merged graph for 256 queries and for the merged search's own
    10,000-query launch, in f32, bf16 and uint8 (uint8 traversal and
    re-ranked ids, distances and counters bit-exact; bf16 re-ranked
@@ -267,6 +270,8 @@ H100_HBM_BYTES = 3.35e12    # HBM3 bytes per second
 
 
 ANN_KERNELS = ("pairwise_distance", "pairwise_distance_u8", "fused_beam", "knn")
+# the build's merge of shard graphs: every build on the card launches it
+BUILD_KERNELS = ("merge_rows",)
 LIVE_INSERTS, LIVE_CALLS, LIVE_QPS = 50_000, 10, 1000.0  # the live phase
 LIVE_CAPACITY_N = 4000  # requests at once before the writer starts
 # rounds between the fleet's periodic checkpoints: at 64 the periodic saves
@@ -847,6 +852,55 @@ def plain_beam(torch, prep, entries, q, qf, kq, kw):
     return [torch.cat(c) for c in zip(*parts)]
 
 
+def check_merge(torch, rows, ds, res):
+    """The merge kernel on the main path's own row table (its build's shard
+    graphs and points) against its plain version on the same card tensors:
+    graphs and unique counts equal entry for entry (both sum each distance
+    in one order, ``ref.lane_sum`` with ``vec=4``), and the kernel's graph
+    equal to the build's; then both timed beside the bound.  The bound
+    counts the bytes read from HBM once (points, row table, graph and
+    counts written) and 3 FP32 operations an element of each unique
+    candidate's distance; the dedup's integer compares are left out."""
+    import numpy as np
+
+    from repro_torch.core.cagra import ShardIndex
+    from repro_torch.core.merge import _row_table
+    from repro_torch.kernels import merge as kmerge
+
+    n, degree = len(ds.data), res.index.graph.shape[1]
+    idxs = [ShardIndex(graph=g, n_distance_computations=0)
+            for g in res.shard_graphs]
+    nbr, row_ptr, row_of = _row_table(res.shards, idxs, n, "cuda")
+    x = torch.from_numpy(np.ascontiguousarray(ds.data, np.float32)).cuda()
+    gk, uk = kmerge.merge_rows_cuda(x, nbr, row_ptr, row_of, degree)
+    gp, up = kmerge.merge_rows_plain(x, nbr, row_ptr, row_of, degree)
+    torch.cuda.synchronize()
+    # ids: the entries that differ, graph and unique counts together
+    diff = int((gk != gp).sum()) + int((uk != up).sum())
+    same_build = bool(np.array_equal(gk.cpu().numpy(), res.index.graph))
+    ms = events_ms(torch, lambda: kmerge.merge_rows_cuda(
+        x, nbr, row_ptr, row_of, degree), reps=5)
+    plain_ms = events_ms(torch, lambda: kmerge.merge_rows_plain(
+        x, nbr, row_ptr, row_of, degree), reps=1)
+    u, d = int(uk.sum()), x.shape[1]
+    n_bytes = (x.numel() + nbr.numel() + row_ptr.numel() + row_of.numel()
+               + gk.numel() + uk.numel()) * 4
+    b, by = bound_ms(n_bytes, 3 * u * d, H100_FP32_FLOPS)
+    log(f"M merge_rows rows={n} shard_rows={nbr.shape[0]} "
+        f"width={nbr.shape[1]} D={d} degree={degree} "
+        f"candidates={nbr.numel()} unique={u} "
+        f"kept={int((gk >= 0).sum())} differing_entries={diff} "
+        f"equal_to_build={same_build} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b:.4f} ({by})")
+    need(diff == 0, f"the merge kernel and its plain version differ in "
+         f"{diff} entries")
+    need(same_build, "the merge kernel's graph differs from the build's")
+    rows["merge_rows"].update(max_abs_err=float(diff), ms=ms,
+                              plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                              library_ms=None)
+    del x, nbr, row_ptr, row_of, gk, uk, gp, up
+
+
 def check_k3(torch, rows, ds, merged):
     """K3 on the built merged graph against its plain version, at 256
     queries and at the merged search's own launch (every query), in f32,
@@ -1002,7 +1056,7 @@ def registry_sum(name: str) -> float:
 def ann_counts() -> dict:
     from repro_torch.kernels import LAUNCHES
 
-    return {name: LAUNCHES[name] for name in ANN_KERNELS}
+    return {name: LAUNCHES[name] for name in ANN_KERNELS + BUILD_KERNELS}
 
 
 async def poisson_load(srv, queries, n: int, rate, seed: int, *,
@@ -1996,7 +2050,7 @@ def diskann_path(torch, args):
     need(agree >= 0.999, "fused and torch disagree on the DiskANN index")
     launches = ann_counts()
     log(f"diskann-path launches {json.dumps(launches)}")
-    for name in ("pairwise_distance", "fused_beam", "knn"):
+    for name in ("pairwise_distance", "fused_beam", "knn", "merge_rows"):
         need(launches[name] > 0, f"kernel {name} was not launched on the "
              "DiskANN path")
     return ds, res, topo, first, launches
@@ -2414,7 +2468,7 @@ def fleet_path(torch, args):
     need(not line["left_in_store"] and not left,
          f"checkpoints left behind: {line['left_in_store']} {left}")
     need(recall >= 0.3, f"fleet index recall@10 {recall:.4f} below 0.3")
-    for name in ("pairwise_distance", "fused_beam", "knn"):
+    for name in ("pairwise_distance", "fused_beam", "knn", "merge_rows"):
         need(launches[name] > 0, f"kernel {name} was not launched on the "
              "fleet path")
     shutil.rmtree(directory, ignore_errors=True)
@@ -4220,7 +4274,7 @@ def examples_path(torch, card: str):
     check_quickstart(outs["quickstart"], cpu_out)
     log("examples " + json.dumps({
         "wall_s": walls, "launches": launches, "card": card}))
-    for name in ANN_KERNELS + LM_KERNELS:
+    for name in ANN_KERNELS + BUILD_KERNELS + LM_KERNELS:
         need(launches[name] > 0, f"the examples phase never launched {name}")
     log(f"examples phase body {time.perf_counter() - t_phase:.3f} s")
     return launches
@@ -4247,16 +4301,16 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.n != 1_000_000:
         log(f"CUT: n={args.n} instead of 1,000,000 (SIFT1M/BIGANN-1M shape)")
-    log(f"CUT: DiskANN phase n={args.vamana_n} instead of 1,000,000 (its "
-        "host merge and the run's time limit; 50,000 by default since the "
-        "live phase)")
-    log(f"CUT: fleet phase n={args.fleet_n} instead of 1,000,000 (its host "
-        "merge and the run's time limit)")
+    log(f"CUT: DiskANN phase n={args.vamana_n} instead of 1,000,000 (the "
+        "run's time limit; 50,000 by default since the live phase)")
+    log(f"CUT: fleet phase n={args.fleet_n} instead of 1,000,000 (the run's "
+        "time limit)")
     t_start = time.perf_counter()
     card = environment(torch)
     from repro_torch.kernels import LAUNCHES
 
-    rows = {name: dict(name=name, route="cuda") for name in LAUNCHES}
+    rows = {name: dict(name=name, route="cuda", launches=0)
+            for name in LAUNCHES}
     meta = {
         "pairwise_distance": ("src/repro_torch/kernels/csrc/distance.cu",
                               "src/repro/kernels/distance.py:155"),
@@ -4270,6 +4324,9 @@ def main(argv=None) -> int:
                             "src/repro/kernels/flash_attention.py:81"),
         "flash_decode": ("src/repro_torch/kernels/csrc/attention.cu",
                          "src/repro/kernels/flash_attention.py:189"),
+        "merge_rows": ("src/repro_torch/kernels/csrc/merge.cu",
+                       "none: the reference merges on the host in numpy "
+                       "(src/repro/core/merge.py:152)"),
     }
     for name, (src, rep) in meta.items():
         rows[name].update(source=src, replaces=rep)
@@ -4286,6 +4343,7 @@ def main(argv=None) -> int:
     check_k2(torch, rows, ds, split, floor)
     check_distance_variants(torch)
     check_k4(torch, rows, ds, res)
+    check_merge(torch, rows, ds, res)
     check_k3(torch, rows, ds, merged)
     k3_by_q(torch, k3_shapes, k3_first)
     del k3_first

@@ -245,7 +245,7 @@ def build_scalegann(
     with tr.span("build.merge", track="build", n_shards=len(part.shards)):
         merged = merge_shard_indexes(
             part.shards, idxs, len(data), cfg.degree, data=data,
-            reference=reference,
+            reference=reference, device=dev,
         )
     merge_s = time.perf_counter() - t0
     return BuildResult(

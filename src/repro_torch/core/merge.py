@@ -9,9 +9,13 @@ Every edge is translated through the shard's (local → global) manifest, so
 the merge output is a pure function of the edge *set*, never of row order.
 ``BufferedShardReader`` is the paper's buffered disk path with its state
 check; ``reference=True`` runs the per-gid seed loop; ``connectivity_stats``
-measures what the merge is for, global reachability.  Under an enabled
-tracer each step of the vectorized union and the medoid probe is a
-``merge.*`` span, with the edges it saw, kept unique and kept as args.
+measures what the merge is for, global reachability.  On a CUDA device the
+union is one row table and one kernel launch (:func:`_merge_rows`,
+``kernels/merge.py``): a vector lies in at most ω shards, so each merged
+row is a small problem of its own, and no global sort is needed.  Under an
+enabled tracer each step of the union and the medoid probe is a
+``merge.*`` span, with the edges or candidates it saw, kept unique and kept
+as args.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.cagra import ShardIndex
 from repro_torch.core.partition import Shard
+from repro_torch.kernels.merge import merge_rows
 from repro_torch.telemetry import current_tracer
 from repro_torch.telemetry.trace import NULL_SPAN
 
@@ -212,6 +218,90 @@ def _union_dedup_cap(
     return graph
 
 
+def _row_table(
+    shards: list[Shard], indexes: list[ShardIndex], n_total: int, device
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The merge kernel's inputs on ``device``: every shard row's neighbours
+    translated to global ids (as :func:`_translate`) and concatenated in
+    shard order, ``nbr`` [Σ nᵢ, W] int32 (-1 pads; W the widest shard
+    graph), and the CSR table from global id to its rows, ``row_ptr``
+    [N + 1] and ``row_of`` int32, each id's rows in shard order (a stable
+    sort of the concatenated ``shard.ids``).  Ids and local neighbours are
+    checked on the host first: out of range they would index past the
+    device's arrays."""
+    w = max((idx.graph.shape[1] for idx in indexes), default=0)
+    ids_parts, graphs = [], []
+    for shard, idx in zip(shards, indexes):
+        ids, g = np.asarray(shard.ids), np.asarray(idx.graph)
+        if g.ndim != 2 or len(g) != len(ids):
+            raise ValueError(f"a shard of {len(ids)} ids has a graph of "
+                             f"shape {g.shape}")
+        if ids.size and (ids.min() < 0 or ids.max() >= n_total):
+            raise ValueError(f"shard ids outside [0, {n_total})")
+        if g.size and g.max() >= len(ids):
+            raise ValueError(f"a shard graph names local row {g.max()} of "
+                             f"{len(ids)}")
+        ids_parts.append(ids.astype(np.int64))
+        graphs.append(g)
+    all_ids = torch.from_numpy(
+        np.concatenate(ids_parts) if ids_parts else np.empty(0, np.int64)
+    ).to(device)
+    nbr = torch.full((len(all_ids), w), -1, dtype=torch.int32, device=device)
+    off = 0
+    for g in graphs:
+        local = torch.from_numpy(np.ascontiguousarray(g, np.int32)).to(device)
+        glob = all_ids[off:off + len(g)][local.clamp_min(0).long()]
+        nbr[off:off + len(g), :g.shape[1]] = torch.where(local >= 0, glob, -1)
+        off += len(g)
+    row_of = torch.sort(all_ids, stable=True).indices.int()
+    row_ptr = torch.zeros(n_total + 1, dtype=torch.int32, device=device)
+    torch.cumsum(torch.bincount(all_ids, minlength=n_total), 0,
+                 out=row_ptr[1:])
+    return nbr, row_ptr, row_of
+
+
+def _merge_rows(
+    shards: list[Shard],
+    indexes: list[ShardIndex],
+    n_total: int,
+    degree: int,
+    data: np.ndarray | None,
+    device,
+) -> np.ndarray:
+    """The union on ``device``: the row table (:func:`_row_table`) and the
+    points uploaded once as f32, then one merge kernel launch
+    (``kernels/merge.py``; its plain version for CPU tensors) and the
+    [N, degree] int32 graph read back.  Per gid the rule of
+    :func:`_union_dedup_cap`: first occurrences in shard → slot order,
+    ranked by (distance, first-seen) or first-seen alone, ``degree``
+    kept."""
+    tr = current_tracer()
+    on = tr.enabled
+    with tr.span("merge.rows_table") if on else NULL_SPAN:
+        nbr, row_ptr, row_of = _row_table(shards, indexes, n_total, device)
+        x = (None if data is None else torch.from_numpy(
+            np.ascontiguousarray(data, np.float32)).to(device))
+    with tr.span("merge.rows") if on else NULL_SPAN as sp:
+        graph, n_unique = merge_rows(x, nbr, row_ptr, row_of, degree)
+        graph = graph.cpu().numpy()
+        if on:
+            sp.set(n_rows=n_total, n_candidates=int(nbr.numel()),
+                   n_unique=int(n_unique.sum()),
+                   n_kept=int(np.count_nonzero(graph >= 0)))
+    return graph
+
+
+def merge_path(device=None, reference: bool = False) -> str:
+    """How a merge on ``device`` runs: ``"loop"`` for ``reference=True``
+    (the seed loop), ``"rows"`` on a CUDA device (:func:`_merge_rows`),
+    else ``"sort"`` (:func:`_union_dedup_cap` on the host)."""
+    if reference:
+        return "loop"
+    if device is not None and torch.device(device).type == "cuda":
+        return "rows"
+    return "sort"
+
+
 def _union_dedup_cap_loop(
     shards: list[Shard],
     indexes: list[ShardIndex],
@@ -273,6 +363,7 @@ def merge_shard_indexes(
     data: np.ndarray | None = None,
     centroid_of: np.ndarray | None = None,
     reference: bool = False,
+    device=None,
 ) -> GlobalIndex:
     """Edge-union merge with degree cap.
 
@@ -287,16 +378,25 @@ def merge_shard_indexes(
 
     ``reference=True`` runs the per-gid seed loop instead of the global
     segment sort (same edge sets; under-capacity rows keep first-seen
-    order there).
+    order there).  A CUDA ``device`` builds the rows on the card
+    (:func:`merge_path`); its f32 sums run in another order than numpy's,
+    so a near-tie may rank the other way.  Under an enabled tracer the path
+    taken is set as ``path`` on the caller's open span.
     """
     if len(shards) != len(indexes):
         raise ValueError("shards and indexes must align")
-    union = _union_dedup_cap_loop if reference else _union_dedup_cap
-    graph = union(shards, indexes, n_total, degree, data)
+    path = merge_path(device, reference)
+    tr = current_tracer()
+    if tr.enabled:
+        tr.annotate(path=path)  # the caller's span: build.merge, fleet.merge
+    if path == "rows":
+        graph = _merge_rows(shards, indexes, n_total, degree, data, device)
+    else:
+        union = _union_dedup_cap_loop if path == "loop" else _union_dedup_cap
+        graph = union(shards, indexes, n_total, degree, data)
 
     medoid = 0
     if data is not None:
-        tr = current_tracer()
         # one stratified gather serves both the mean and the medoid probe
         with tr.span("merge.medoid") if tr.enabled else NULL_SPAN:
             probe_ids = np.linspace(0, n_total - 1,

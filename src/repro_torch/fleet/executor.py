@@ -523,7 +523,7 @@ def build_scalegann_fleet(
     t0 = time.perf_counter()
     with tr.span("fleet.merge", track="fleet"):
         merged = merge_shard_indexes(
-            shards, results, len(data), cfg.degree, data=data
+            shards, results, len(data), cfg.degree, data=data, device=dev
         )
     merge_s = time.perf_counter() - t0
     makespan_s = time.perf_counter() - t_all

@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("distance", "knn", "beam", "attention")
+SOURCES = ("distance", "knn", "beam", "attention", "merge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -38,6 +38,7 @@ LAUNCHES: dict[str, int] = {
     "knn": 0,
     "flash_attention": 0,
     "flash_decode": 0,
+    "merge_rows": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

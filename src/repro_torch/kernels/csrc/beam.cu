@@ -18,7 +18,7 @@
 //     id), and counts n_rerank as the valid candidates.  Each exact
 //     distance is summed in one fixed order, lane sums then an xor
 //     butterfly with every operation rounded once, which the plain version
-//     (beam.py _lane_sum) writes in elementwise torch ops: the two agree
+//     (ref.py lane_sum) writes in elementwise torch ops: the two agree
 //     bit for bit.
 //
 // The TPU layout is not carried over: its dense [1, N] score row, one-hot
@@ -530,8 +530,8 @@ __global__ void __launch_bounds__(THREADS, ROUNDS == 4 ? 4 : 2) beam_kernel(Para
     float v = CUDART_INF_F;
     if (ok) {
       const float* row = p.x_exact + (size_t)ci[j] * p.dx;
-      // one summation order, kernel and plain version alike (beam.py
-      // _lane_sum): lane l adds t[l], t[l+32], ... in turn, each term and
+      // one summation order, kernel and plain version alike (ref.py
+      // lane_sum): lane l adds t[l], t[l+32], ... in turn, each term and
       // sum rounded once (no FMA), then an xor butterfly over 16..1
       float acc = 0.f;
       for (int i = lane; i < p.dx; i += 32) {

@@ -74,6 +74,32 @@ def pairwise_distance_u8(cq, cx, scale, zero_point, metric: str = "l2",
     raise ValueError(f"unknown metric {metric!r}")
 
 
+LANES = 32
+
+
+def lane_sum(terms: torch.Tensor, vec: int = 1) -> torch.Tensor:
+    """Sum f32 ``terms`` over the last axis in a warp's fixed order, in
+    elementwise ops only, so that every step rounds once on any device: the
+    axis is cut into units of ``vec`` neighbouring terms (one load of a
+    lane), lane ``l`` takes units ``l, l + 32, ...`` in turn and adds each
+    unit's terms in order (zero padding adds +0.0), then an xor butterfly
+    over offsets 16, 8, 4, 2, 1 (``acc + acc[l ^ off]``; IEEE addition
+    commutes, so every lane ends with the same sum).  K3's re-rank sums with
+    ``vec=1``, the merge kernel with ``vec=4`` (float4 loads)."""
+    pad = -terms.shape[-1] % (LANES * vec)
+    if pad:
+        terms = torch.nn.functional.pad(terms, (0, pad))
+    units = terms.reshape(*terms.shape[:-1], -1, LANES, vec)
+    acc = torch.zeros_like(units[..., 0, :, 0])
+    for u in range(units.shape[-3]):
+        for c in range(vec):
+            acc = acc + units[..., u, :, c]
+    idx = torch.arange(LANES, device=terms.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., idx ^ off]
+    return acc[..., 0]
+
+
 def topk_smallest(dists: torch.Tensor, k: int):
     """(values, indices) of the k smallest along the last axis, ascending,
     ties by index; pads with (inf, -1) when the axis is shorter than k."""
@@ -97,6 +123,60 @@ def assign_nearest(x, centroids, metric: str = "l2"):
     d = pairwise_distance(x, centroids, metric)
     idx = torch.argmin(d, dim=1)
     return idx, d.gather(1, idx[:, None])[:, 0]
+
+
+def merge_rows_plain(x, nbr, row_ptr, row_of, degree: int):
+    """Plain version of the merge kernel (``csrc/merge.cu``): each global
+    id's merged row from its shard rows.
+
+    ``nbr`` [S, W] int32 holds every shard row's neighbours in global ids
+    (-1 pads), ``row_of[row_ptr[g]:row_ptr[g + 1]]`` (int32) the rows of id
+    ``g`` in shard order, ``x`` [N, D] f32 the points or None.  Row ``g``'s
+    candidates are its rows' slots in that order with -1 and ``g`` left
+    out; a repeated id keeps its first occurrence; the unique candidates
+    are ranked by (squared L2 to ``x[g]``, first-seen position), or by
+    position alone without ``x``, and the first ``degree`` are kept, -1
+    after them.  Distances are summed as the kernel sums them
+    (:func:`lane_sum` with ``vec=4``; NaN ranks as +inf).  Returns
+    (graph [N, degree] int32, unique candidates a row [N] int32).  Rows go
+    in blocks of at most 2^24 gathered f32 elements."""
+    n = row_ptr.shape[0] - 1
+    w = nbr.shape[1]
+    dev = nbr.device
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    cap = int(counts.max()) * w if n else 0
+    graph = torch.full((n, degree), -1, dtype=torch.int32, device=dev)
+    n_unique = torch.zeros(n, dtype=torch.int32, device=dev)
+    if cap == 0:
+        return graph, n_unique
+    slot = torch.arange(cap, device=dev)
+    per_block = max(1, (1 << 24) // (cap * (1 if x is None
+                                            else x.shape[1])))
+    for s in range(0, n, per_block):
+        g = torch.arange(s, min(s + per_block, n), device=dev)
+        entry = slot // w
+        rows = row_ptr[g].long()[:, None] + entry
+        live = entry < counts[g][:, None]
+        cand = nbr[row_of[rows.clamp_max(len(row_of) - 1)].long(), slot % w]
+        cand = torch.where(live & (cand != g[:, None]), cand, -1)
+        srt, order = torch.sort(cand, dim=1, stable=True)
+        first = torch.ones_like(srt, dtype=torch.bool)
+        first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+        keep = torch.zeros_like(first).scatter(1, order, first) & (cand >= 0)
+        n_unique[g] = keep.sum(dim=1, dtype=torch.int32)
+        if x is None:
+            rank = torch.arange(cap, device=dev).expand_as(cand)
+        else:
+            diff = x[cand.clamp_min(0).long()] - x[g][:, None]
+            d = lane_sum(diff * diff, vec=4)
+            d = torch.where(torch.isnan(d), torch.inf, d)
+            rank = torch.sort(d, dim=1, stable=True).indices
+        # kept candidates first, each group in rank order
+        rank = rank.gather(1, torch.sort((~keep).gather(1, rank).to(
+            torch.uint8), dim=1, stable=True).indices)[:, :degree]
+        got = torch.where(keep.gather(1, rank), cand.gather(1, rank), -1)
+        graph[g, :got.shape[1]] = got.int()
+    return graph, n_unique
 
 
 # ---------------------------------------------------------------------------

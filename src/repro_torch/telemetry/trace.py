@@ -155,6 +155,9 @@ class NullTracer:
     def instant(self, *a: Any, **kw: Any) -> None:
         return None
 
+    def annotate(self, **args: Any) -> None:
+        return None
+
     def complete(self, *a: Any, **kw: Any) -> None:
         return None
 
@@ -261,6 +264,13 @@ class Tracer:
         parent = stack[-1].sid if stack else -1
         self._append(name, "i", track, self._clock(), None,
                      dict(args, s="t"), sid=next(self._ids), parent=parent)
+
+    def annotate(self, **args: Any) -> None:
+        """Attach ``args`` to this thread's innermost open span (none open:
+        a no-op), for a callee that labels the span its caller opened."""
+        stack = self._stack()
+        if stack:
+            stack[-1].set(**args)
 
     def complete(self, name: str, t0: float, t1: float, *,
                  track: str | None = None, **args: Any) -> None:
