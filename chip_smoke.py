@@ -27,7 +27,11 @@
    ragged N, M and D (uint8 L2 bit-exact in each).  K4 on integer points
    with duplicates (f32-exact distances, ids equal), at ragged N, k > N,
    k = 1, k = 256, IP and ground truth's last block (1808 x 1M, k=10), then
-   at one shard's shape with k=129 beside cdist + topk; the merge kernel
+   at one shard's shape with k=129 beside cdist + topk (the resident
+   64-row panel), then its streamed panel at GIST-960's shard shapes,
+   [12500,960]^2 at k=129 (64 rows) and [4096,960]x[12500,960] at k=256
+   (32 rows), against the plain version and beside the FP32 bound (the
+   ``kernels`` row's ``streamed`` entries); the merge kernel
    on step 2's own row table against its plain version (graph and unique
    counts equal, and equal to the build's graph), timed; K3 on the built
    merged graph for 256 queries and for the merged search's own
@@ -666,7 +670,9 @@ def near_ties(q, x, got_ids, want_ids, rtol: float,
 def check_k4(torch, rows, ds, res):
     """K4 against its plain version: the tie-exact case (ids equal), the
     edge cases, ground truth's last block, then the largest shard (ids equal
-    up to near-ties) with its timings beside cdist and topk."""
+    up to near-ties) with its timings beside cdist and topk, then the
+    streamed panel at GIST-960's shard shapes (k 129 and 256) with its
+    timings beside its FP32 bound."""
     import numpy as np
 
     from repro_torch.kernels import topk
@@ -734,9 +740,44 @@ def check_k4(torch, rows, ds, res):
     need(ms < cd_ms + tk_ms, "K4 is slower than cdist + topk")
     b, by = bound_ms((m + n) * d * 4 + m * k * 8, 2 * m * n * d,
                      H100_FP32_FLOPS)
+    need(topk.knn_plan(d, k) == topk.KnnPlan(64, "resident"),
+         "K4 at D=128, k=129 left the resident 64-row panel")
     rows["knn"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b, bound_by=by, library_ms=None)
     del gd, gi, wd, wi, q, x
+
+    # GIST-960's shard builds take the streamed panel, which the widths
+    # above never reach: a shard of 12,500 rows (200,000 points in 16
+    # clusters) at a CAGRA build's k = 129, and K4's largest k, 256
+    x = torch.randn(12_500, 960, device="cuda", generator=g)
+    wide = []
+    for m, k, plan in ((12_500, 129, topk.KnnPlan(64, "streamed")),
+                       (4_096, 256, topk.KnnPlan(32, "streamed"))):
+        q = x[:m].contiguous()
+        need(topk.knn_plan(960, k) == plan,
+             f"K4 at D=960, k={k} took {topk.knn_plan(960, k)}, not {plan}")
+        gd, gi = topk.knn_cuda(q, x, k)
+        wd, wi = topk.knn_plain(q, x, k)
+        err = float((gd - wd).abs().max())
+        bad = near_ties(q, x, gi, wi, 1e-5)
+        ms = events_ms(torch, lambda: topk.knn_cuda(q, x, k), reps=5)
+        plain_ms = events_ms(torch, lambda: topk.knn_plain(q, x, k), reps=2)
+        n, d = x.shape
+        b, by = bound_ms((m + n) * d * 4 + m * k * 8, 2 * m * n * d,
+                         H100_FP32_FLOPS)
+        log(f"K4 knn {plan.panel} {plan.rows} rows [{m},{d}]x[{n},{d}] "
+            f"k={k} max_abs_err={err:.3e} beyond_near_ties={bad} "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b:.4f} "
+            f"({by}) share={100 * b / ms:.1f}%")
+        need(err <= 1e-5 * float(wd.abs().max()) + 1e-4,
+             f"K4 D=960 k={k}: distances disagree")
+        need(bad == 0, f"K4 D=960 k={k}: ids disagree beyond near-ties")
+        wide.append(dict(m=m, n=n, d=d, k=k, block_rows=plan.rows,
+                         panel=plan.panel, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b, bound_by=by))
+        del gd, gi, wd, wi, q
+    rows["knn"]["streamed"] = wide
+    del x
 
     # the largest shard's build, split into its two phases: how much of a
     # shard build K4 is
@@ -4405,8 +4446,10 @@ def main(argv=None) -> int:
     log(f"total {time.perf_counter() - t_start:.3f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}
-                                  for n in LAUNCHES]}))
+    # K4's row also carries its streamed panel at GIST-960's shapes
+    print(json.dumps({"kernels": [
+        {k: rows[n][k] for k in keys + ("streamed",) if k in rows[n]}
+        for n in LAUNCHES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -230,9 +230,10 @@ def build_scalegann(
     dev = resolve_device(device)
     tr = current_tracer()
     t0 = time.perf_counter()
-    with tr.span("build.partition", track="build", n=len(data)):
+    with tr.span("build.partition", track="build", n=len(data)) as span:
         part: PartitionResult = partition(data, cfg, selective=selective,
                                           device=dev)
+        span.set(n_rescued=part.n_rescued)
     partition_s = time.perf_counter() - t0
 
     idxs, per_shard_s, wall, attempts, errors = _build_shards(

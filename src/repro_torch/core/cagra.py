@@ -9,9 +9,11 @@ reference leaves them to XLA outside any Pallas kernel; the pruning and
 the reverse-edge fill are numpy, as in the reference.  ``reference=True``
 runs the reference's per-node seed loops for the reverse fill and the row
 dedup instead (bit-identical output; the seed-loop baseline).  Under an
-enabled tracer a shard build records ``shard.knn`` and ``shard.prune``, and
-the prune its three steps (``prune.detour``, ``prune.select``,
-``prune.dedup``).
+enabled tracer a shard build records ``shard.knn`` (with the width ``d``,
+and on the card K4's block shape ``block_rows`` and ``panel``, which
+:func:`repro_torch.kernels.topk.knn_cuda` puts there) and
+``shard.prune``, and the prune its three steps (``prune.detour``,
+``prune.select``, ``prune.dedup``).
 """
 
 from __future__ import annotations
@@ -235,8 +237,8 @@ def build_shard_index(vectors: np.ndarray, cfg: IndexConfig, *,
     tr = current_tracer()
     on = tr.enabled
     n = len(vectors)
-    with (tr.span("shard.knn", n=n, k=min(cfg.build_degree + 1, n))
-          if on else NULL_SPAN):
+    with (tr.span("shard.knn", n=n, k=min(cfg.build_degree + 1, n),
+                  d=vectors.shape[1]) if on else NULL_SPAN):
         nbrs, dists, nd1 = build_knn_graph(
             vectors, cfg.build_degree, metric=cfg.metric, device=device
         )

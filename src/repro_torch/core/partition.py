@@ -27,6 +27,16 @@ Invariants (as in the reference):
   I2  a vector appears in ≤ ω clusters, no cluster twice;
   I3  every replica satisfies the ε/τ constraints at admission time;
   I4  no cluster exceeds its capacity.
+
+One departure from the reference, where its result is degenerate: a
+vector whose only cluster holds it alone (k-means re-seeds an empty
+cluster at the farthest point, and in high dimensions such a centre can
+keep that one point) would get no edge from its shard's graph, so the
+merge would leave its row empty.  Where ω allows it, it also gets a
+replica in its nearest other non-empty cluster with space
+(:func:`_rescue_lone_vectors`; outside I3's rule and θ's quota; counted
+among ``stats["n_replicas"]`` and, alone, in
+:attr:`PartitionResult.n_rescued`).
 """
 
 from __future__ import annotations
@@ -321,6 +331,7 @@ class PartitionResult:
     shards: list[Shard]
     state: PartitionState
     stats: dict
+    n_rescued: int = 0  # lone vectors given a replica outside I3 (above)
 
     @property
     def replica_proportion(self) -> float:
@@ -342,6 +353,37 @@ def iter_blocks(
             yield data[s : s + block_size]
     else:
         yield from data
+
+
+def _rescue_lone_vectors(shards: list[Shard], data, state: PartitionState,
+                         omega: int, device: torch.device) -> int:
+    """Replicate each vector whose every shard holds it alone, and which is
+    in fewer than ``omega`` shards, into its nearest other cluster (by
+    centroid) that holds points and has space, in place; returns how many.
+    A one-point shard's graph has no neighbour to give its vector, and the
+    merge builds a row only from shard rows."""
+    lone = {int(s.ids[0]) for s in shards if len(s.ids) == 1}
+    sizes = np.array([len(s.ids) for s in shards])
+    for s in shards:
+        if len(s.ids) >= 2 and lone:
+            lone -= set(np.intersect1d(s.ids, list(lone)).tolist())
+    rescued = 0
+    for v in sorted(lone):
+        d = _distances_to_centroids(np.asarray(data[v:v + 1]),
+                                    state.centroids, device)[0]
+        d[(sizes < 1) | (state.sizes >= state.capacity)] = np.inf
+        held = [c for c, s in enumerate(shards) if v in s.ids]
+        d[held] = np.inf
+        c = int(np.argmin(d))
+        if len(held) >= omega or not np.isfinite(d[c]):
+            continue  # no cluster can take it: its row stays empty
+        shards[c].ids = np.append(shards[c].ids, v)
+        shards[c].is_replica = np.append(shards[c].is_replica, True)
+        sizes[c] += 1
+        state.sizes[c] += 1
+        state.replica_sizes[c] += 1
+        rescued += 1
+    return rescued
 
 
 def partition(
@@ -414,6 +456,8 @@ def partition(
         )
         for c in range(cfg.n_clusters)
     ]
+    n_rescued = _rescue_lone_vectors(shards, data, state, cfg.omega, dev)
+    n_replicas += n_rescued
     stats = {
         "n": n,
         "n_replicas": int(n_replicas),
@@ -423,4 +467,5 @@ def partition(
         "max_shard": max((len(s.ids) for s in shards), default=0),
         "capacity": state.capacity,
     }
-    return PartitionResult(shards=shards, state=state, stats=stats)
+    return PartitionResult(shards=shards, state=state, stats=stats,
+                           n_rescued=n_rescued)

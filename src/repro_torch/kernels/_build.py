@@ -9,13 +9,17 @@ rebuilds and an unchanged source is reused.  The library is loaded with
 Launch counters are integers under a lock of their own (threads launch at
 once: the fleet's workers, a server beside a live index's writer): each
 wrapper calls :func:`count` right where it launches its kernel, and nowhere
-else.  Each ``nvcc`` run is reported to :data:`on_build`, a hook that
+else.  While a tracer is enabled, each kNN call also leaves one record
+(:func:`record_knn`: K4's wrapper on the card, ``ops.knn``'s plain path on
+the CPU), read by :func:`knn_launches` for the benchmark's roofline share
+of K4.  Each ``nvcc`` run is reported to :data:`on_build`, a hook that
 :func:`repro_torch.telemetry.install_compile_listener` installs (this module
 imports nothing of telemetry).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -41,6 +45,14 @@ LAUNCHES: dict[str, int] = {
     "merge_rows": 0,
 }
 
+# K4's calls while a tracer is enabled: (m, n, d, k, seconds), the seconds
+# a float (the plain path's wall time) or the pair of CUDA events recorded
+# around the launch, resolved by knn_launches().  Only the benchmark's
+# window reads it, after a reset_counts(); a long-lived traced process
+# keeps just the newest KNN_RECORD_CAP calls.
+KNN_RECORD_CAP = 4096
+_KNN_RECORD: collections.deque = collections.deque(maxlen=KNN_RECORD_CAP)
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()  # held through nvcc builds
 _COUNT_LOCK = threading.Lock()  # held for one increment
@@ -58,6 +70,27 @@ def reset_counts() -> None:
     with _COUNT_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        _KNN_RECORD.clear()
+
+
+def record_knn(m: int, n: int, d: int, k: int, seconds) -> None:
+    with _COUNT_LOCK:
+        _KNN_RECORD.append((m, n, d, k, seconds))
+
+
+def knn_launches() -> list:
+    """``(m, n, d, k, seconds)`` of each K4 call recorded since
+    :func:`reset_counts`, the newest :data:`KNN_RECORD_CAP` of them; a
+    launch's CUDA events are waited for here."""
+    with _COUNT_LOCK:
+        recs = list(_KNN_RECORD)
+    out = []
+    for m, n, d, k, s in recs:
+        if isinstance(s, tuple):
+            s[1].synchronize()
+            s = s[0].elapsed_time(s[1]) / 1e3
+        out.append((m, n, d, k, s))
+    return out
 
 
 def _nvcc() -> str:

@@ -28,11 +28,18 @@
 //   * Register-tiled distance tile: 256 threads, warp w owns query rows
 //     RW*w .. RW*w+RW-1, lane l owns columns l, l+32, l+64, l+96 of a
 //     128-column tile, so a thread holds an RW x 4 patch (8 x 4 at BM = 64).
-//     The Q panel stays in shared memory for the whole block (broadcast
-//     float4 reads); x streams through a 3-stage ring of [128][32+4]-float
-//     chunks filled by cp.async, one barrier a chunk (the 4-float pad puts
-//     a quarter-warp's float4 reads on distinct banks).  Row norms come from
-//     the Q panel; column norms from one pass of sq_norms over x first.
+//     x streams through a 3-stage ring of [128][32+4]-float chunks filled by
+//     cp.async, one barrier a chunk (the 4-float pad puts a quarter-warp's
+//     float4 reads on distinct banks).  The Q panel (broadcast float4 reads)
+//     either stays in shared memory for the whole block (knn_split, the
+//     resident panel) or, where BM rows of D floats do not fit beside the
+//     lists, streams through the same ring as a [BM][32+4] chunk beside each
+//     x chunk (knn_split_streamed): shared memory then no longer grows with
+//     D, at the cost of reading the panel again from L2 for every column
+//     tile (half again x's bytes at BM = 64).  Both sum each distance in the
+//     same order, so they give the same bits.  Row norms come from the panel
+//     (streamed: from q itself, in sq_norms' order); column norms from one
+//     pass of sq_norms over x first.
 //   * Threshold filter instead of per-column insertion: each row keeps tau,
 //     its current k-th distance (+inf until it holds k), in the registers
 //     of the warp that owns it.  After each tile one vote per row finds the
@@ -55,10 +62,14 @@
 //     keeps a column of equal distance but smaller index in the running
 //     (across spans, and inside a buffer, arrival order says nothing).
 //   * Shared memory, 4 bytes each: Q panel BM*(Dp+4) (Dp = D rounded up to
-//     32), x ring 3*128*36, lists 2*BM*k, buffers 2*BM*128.  At D = 128,
-//     k = 129, BM = 64: 33 + 55 + 66 + 66 KB = 221 KB, one block per SM;
-//     where that exceeds the 227 KB a block may take (k = 256), BM drops to
-//     32.  The wrapper raises when neither fits.
+//     32; streamed: none, and the ring's stages hold 3*BM*36 more), x ring
+//     3*128*36, lists 2*BM*k, buffers 2*BM*128.  At D = 128, k = 129,
+//     BM = 64: 33 + 55 + 66 + 66 KB = 221 KB, one block per SM.
+//     repro_knn_plan takes the first that fits the 227 KB a block may
+//     have: resident at BM = 64, then 32, then streamed at BM = 64, then
+//     32.  At k = 129 the resident panel fits up to D = 864; streamed at
+//     BM = 64 it takes 215 KB at any D (k <= 129), at BM = 32 164 KB
+//     (k = 256).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -122,21 +133,24 @@ __device__ __forceinline__ int lower_bound(const float* ad, const int* ai, int l
   return pos;
 }
 
-// The block's shared memory: Q panel [bm][dp+4], x ring [STAGES][BN][XS],
-// sorted lists [bm][k] (distances, then ids), candidate buffers [bm][CAP]
-// (distances, then ids), list lengths [bm].
+// The block's shared memory: the head (resident: Q panel [bm][dp+4], then
+// the ring [STAGES][BN][XS]; streamed: the ring [STAGES][BN + bm][XS], each
+// stage an x chunk then a Q chunk), then sorted lists [bm][k] (distances,
+// then ids), candidate buffers [bm][CAP] (distances, then ids), list
+// lengths [bm].
+__host__ __device__ constexpr int head_floats(int bm, bool streamed, int d) {
+  return streamed ? STAGES * (BN + bm) * XS
+                  : bm * ((d + KC - 1) / KC * KC + 4) + STAGES * BN * XS;
+}
+
 struct Layout {
-  float* qs;
-  float* xs;
   float* ld;
   int* li;
   float* bd;
   int* bi;
   int* n_list;
-  __device__ __forceinline__ Layout(int bm, int qstride, int k) {
-    qs = reinterpret_cast<float*>(smem4);
-    xs = qs + bm * qstride;
-    ld = xs + STAGES * BN * XS;
+  __device__ __forceinline__ Layout(int bm, int head, int k) {
+    ld = reinterpret_cast<float*>(smem4) + head;
     li = reinterpret_cast<int*>(ld + bm * k);
     bd = reinterpret_cast<float*>(li + bm * k);
     bi = reinterpret_cast<int*>(bd + bm * CAP);
@@ -147,8 +161,8 @@ struct Layout {
 // Sort row r's `cnt` buffered candidates and merge them into the row's
 // sorted list, keeping the k smallest by (distance, index); returns the new
 // tau.  Called by a whole warp.
-__device__ __noinline__ float merge_row(int r, int cnt, int bm, int qstride, int k) {
-  const Layout L(bm, qstride, k);
+__device__ __noinline__ float merge_row(int r, int cnt, int bm, int head, int k) {
+  const Layout L(bm, head, k);
   float* bd = L.bd + r * CAP;
   int* bi = L.bi + r * CAP;
   float* ld = L.ld + r * k;
@@ -239,9 +253,8 @@ __device__ __noinline__ float merge_row(int r, int cnt, int bm, int qstride, int
   return tau;
 }
 
-size_t split_smem(int rw, int d, int k) {
-  const size_t bm = 8 * (size_t)rw, dp = (size_t)(d + KC - 1) / KC * KC;
-  return sizeof(float) * (bm * (dp + 4) + STAGES * BN * XS + 2 * bm * k + 2 * bm * CAP)
+size_t split_smem(int bm, bool streamed, int d, int k) {
+  return sizeof(float) * ((size_t)head_floats(bm, streamed, d) + 2 * (size_t)bm * (k + CAP))
          + sizeof(int) * bm;
 }
 
@@ -259,16 +272,43 @@ sq_norms(const float* __restrict__ x, float* __restrict__ xn, int n, int d) {
   if (lane == 0) xn[row] = s;
 }
 
-template <int RW, bool L2>
-__global__ void __launch_bounds__(THREADS)
-knn_split(const float* __restrict__ q, const float* __restrict__ x,
-          const float* __restrict__ xn, float* __restrict__ part_d,
-          int* __restrict__ part_i, int m, int n, int d, int k, int span, int vec) {
+// Copy rows [r0, r0 + ROWS) x columns [k0, k0 + KC) of the [lim, d] matrix
+// src into dst[ROWS][XS] with cp.async, zeros outside it: 16-byte copies
+// when `vec` (d a multiple of 4, src 16-byte aligned), else 4-byte ones.
+template <int ROWS>
+__device__ __forceinline__ void issue_chunk(float* dst, const float* __restrict__ src,
+                                            int r0, int lim, int k0, int d, int vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < ROWS * KC / 4; i += THREADS) {
+      const int r = i / (KC / 4), p = i % (KC / 4), gr = r0 + r, gk = k0 + 4 * p;
+      const bool ok = gr < lim && gk < d;
+      cp_async16(dst + r * XS + 4 * p, ok ? src + (size_t)gr * d + gk : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * KC; i += THREADS) {
+      const int r = i / KC, p = i % KC, gr = r0 + r, gk = k0 + p;
+      const bool ok = gr < lim && gk < d;
+      cp_async4(dst + r * XS + p, ok ? src + (size_t)gr * d + gk : src, ok);
+    }
+  }
+}
+
+// One block's span: rows [BM * blockIdx.x, +BM) against the columns of span
+// blockIdx.y.  STREAMED takes the Q panel through the ring beside x.
+template <int RW, bool L2, bool STREAMED>
+__device__ __forceinline__ void knn_block(const float* __restrict__ q,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ xn,
+                                          float* __restrict__ part_d, int* __restrict__ part_i,
+                                          int m, int n, int d, int k, int span, int vec) {
   constexpr int BM = 8 * RW;
-  const int dp = (d + KC - 1) / KC * KC, qstride = dp + 4;
-  const Layout L(BM, qstride, k);
-  float* qs = L.qs;
-  float* xs = L.xs;
+  constexpr int STAGE = (BN + (STREAMED ? BM : 0)) * XS;  // floats a ring stage
+  const int dp = (d + KC - 1) / KC * KC;
+  const int qstride = STREAMED ? XS : dp + 4;
+  const int head = head_floats(BM, STREAMED, d);
+  const Layout L(BM, head, k);
+  float* qs = reinterpret_cast<float*>(smem4);          // resident panel
+  float* xs = qs + (STREAMED ? 0 : BM * qstride);       // the ring
   float* bd = L.bd;
   int* bi = L.bi;
 
@@ -278,28 +318,19 @@ knn_split(const float* __restrict__ q, const float* __restrict__ x,
   const int n_chunks = dp / KC;
   const int n_steps = c_hi > c_lo ? (c_hi - c_lo + BN - 1) / BN * n_chunks : 0;
 
-  for (int i = tid; i < BM * dp; i += THREADS) {
-    const int r = i / dp, c = i % dp;
-    qs[r * qstride + c] = (row0 + r < m && c < d) ? q[(size_t)(row0 + r) * d + c] : 0.f;
+  if constexpr (!STREAMED) {
+    for (int i = tid; i < BM * dp; i += THREADS) {
+      const int r = i / dp, c = i % dp;
+      qs[r * qstride + c] = (row0 + r < m && c < d) ? q[(size_t)(row0 + r) * d + c] : 0.f;
+    }
   }
   for (int r = tid; r < BM; r += THREADS) L.n_list[r] = 0;
 
   auto issue = [&](int step) {
     const int col0 = c_lo + step / n_chunks * BN, k0 = step % n_chunks * KC;
-    float* dst = xs + step % STAGES * BN * XS;
-    if (vec) {
-      for (int i = tid; i < BN * KC / 4; i += THREADS) {
-        const int r = i / (KC / 4), p = i % (KC / 4), gc = col0 + r, gk = k0 + 4 * p;
-        const bool ok = gc < c_hi && gk < d;
-        cp_async16(dst + r * XS + 4 * p, ok ? x + (size_t)gc * d + gk : x, ok);
-      }
-    } else {
-      for (int i = tid; i < BN * KC; i += THREADS) {
-        const int r = i / KC, p = i % KC, gc = col0 + r, gk = k0 + p;
-        const bool ok = gc < c_hi && gk < d;
-        cp_async4(dst + r * XS + p, ok ? x + (size_t)gc * d + gk : x, ok);
-      }
-    }
+    float* dst = xs + step % STAGES * STAGE;
+    issue_chunk<BN>(dst, x, col0, c_hi, k0, d, vec);
+    if constexpr (STREAMED) issue_chunk<BM>(dst + BN * XS, q, row0, m, k0, d, vec);
   };
 
   for (int pre = 0; pre < STAGES - 1; ++pre) {
@@ -307,12 +338,19 @@ knn_split(const float* __restrict__ q, const float* __restrict__ x,
     cp_async_commit();
   }
   __syncthreads();
-  float qn[RW];
+  float qn[RW];  // the same sum in both: padding columns add fmaf(0, 0, s) = s
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
-    const float* qr = qs + (warp * RW + i) * qstride;
+    const int r = warp * RW + i;
     float s = 0.f;
-    for (int c = lane; c < dp; c += 32) s = fmaf(qr[c], qr[c], s);
+    if constexpr (STREAMED) {
+      const float* qr = q + (size_t)(row0 + r) * d;
+      if (row0 + r < m)
+        for (int c = lane; c < d; c += 32) s = fmaf(qr[c], qr[c], s);
+    } else {
+      const float* qr = qs + r * qstride;
+      for (int c = lane; c < dp; c += 32) s = fmaf(qr[c], qr[c], s);
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
     qn[i] = s;
@@ -344,8 +382,8 @@ knn_split(const float* __restrict__ q, const float* __restrict__ x,
         xnv[j] = (L2 && c < c_hi) ? xn[c] : 0.f;
       }
     }
-    const float* xt = xs + step % STAGES * BN * XS;
-    const float* qb = qs + warp * RW * qstride + ch * KC;
+    const float* xt = xs + step % STAGES * STAGE;
+    const float* qb = STREAMED ? xt + (BN + warp * RW) * XS : qs + warp * RW * qstride + ch * KC;
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 4) {
       float4 b[4];
@@ -397,7 +435,7 @@ knn_split(const float* __restrict__ q, const float* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < RW; ++i) {
         if (n_buf[i] + passed[i] <= CAP && n_buf[i] < CAP / 2) continue;
-        tau[i] = merge_row(warp * RW + i, n_buf[i], BM, qstride, k);
+        tau[i] = merge_row(warp * RW + i, n_buf[i], BM, head, k);
         n_buf[i] = 0;
       }
     }
@@ -426,7 +464,7 @@ knn_split(const float* __restrict__ q, const float* __restrict__ x,
   for (int i = 0; i < RW; ++i) {
     const int r = warp * RW + i, gr = row0 + r;
     if (gr >= m) continue;
-    if (n_buf[i] > 0) merge_row(r, n_buf[i], BM, qstride, k);
+    if (n_buf[i] > 0) merge_row(r, n_buf[i], BM, head, k);
     const int nl = L.n_list[r];
     const size_t base = ((size_t)blockIdx.y * m + gr) * k;
     for (int j = lane; j < k; j += 32) {
@@ -468,49 +506,75 @@ knn_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
   }
 }
 
+// The two instantiations of knn_block: the resident panel keeps its name.
 template <int RW, bool L2>
-int launch_split(const float* q, const float* x, const float* xn, float* pd, int* pi,
-                 int m, int n, int d, int k, int splits, int vec, cudaStream_t st) {
-  const size_t smem = split_smem(RW, d, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_split<RW, L2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int span = (n + splits - 1) / splits;
-  dim3 grid((m + 8 * RW - 1) / (8 * RW), splits);
-  knn_split<RW, L2><<<grid, THREADS, smem, st>>>(q, x, xn, pd, pi, m, n, d, k, span, vec);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(THREADS)
+knn_split(const float* __restrict__ q, const float* __restrict__ x,
+          const float* __restrict__ xn, float* __restrict__ part_d,
+          int* __restrict__ part_i, int m, int n, int d, int k, int span, int vec) {
+  knn_block<RW, L2, false>(q, x, xn, part_d, part_i, m, n, d, k, span, vec);
 }
 
-int pick_rw(int d, int k) {
-  if (split_smem(8, d, k) <= SMEM_LIMIT) return 8;
-  if (split_smem(4, d, k) <= SMEM_LIMIT) return 4;
-  return 0;
+template <int RW, bool L2>
+__global__ void __launch_bounds__(THREADS)
+knn_split_streamed(const float* __restrict__ q, const float* __restrict__ x,
+                   const float* __restrict__ xn, float* __restrict__ part_d,
+                   int* __restrict__ part_i, int m, int n, int d, int k, int span, int vec) {
+  knn_block<RW, L2, true>(q, x, xn, part_d, part_i, m, n, d, k, span, vec);
+}
+
+using SplitKernel = void (*)(const float*, const float*, const float*, float*, int*, int, int,
+                             int, int, int, int);
+
+// The instantiation for `rows` queries a block (64 or 32), or null.
+SplitKernel split_kernel(int rows, bool streamed, bool l2) {
+  switch (rows) {
+    case 64:
+      if (streamed) return l2 ? knn_split_streamed<8, true> : knn_split_streamed<8, false>;
+      return l2 ? knn_split<8, true> : knn_split<8, false>;
+    case 32:
+      if (streamed) return l2 ? knn_split_streamed<4, true> : knn_split_streamed<4, false>;
+      return l2 ? knn_split<4, true> : knn_split<4, false>;
+    default:
+      return nullptr;
+  }
 }
 
 }  // namespace
 
-// Column spans per row block for an [m,d] x [n,d] search with this k: the
-// fewest spans that give at least one block per resident slot on the card
-// and fill the last wave to 90% (else the best-filled count up to twice
-// that); 0 when D and k do not fit one block's shared memory.  Each span
-// costs its own warm-up of the top-k lists, so fewer spans are faster once
-// the card is full.
-extern "C" int repro_knn_splits(int m, int n, int d, int k) {
-  const int rw = pick_rw(d, k);
-  if (rw == 0 || k < 1 || k > KMAX) return 0;
+// The block shape for this d and k: the first of 64 and 32 rows a block
+// with the resident panel, then 64 and 32 with the streamed panel, whose
+// shared memory fits SMEM_LIMIT.  Writes its rows (0 when none fits) and
+// whether its panel streams; returns SMEM_LIMIT.
+extern "C" long long repro_knn_plan(int d, int k, int* rows, int* streamed) {
+  *rows = 0;
+  *streamed = 0;
+  for (int s = 0; s < 2; ++s)
+    for (int bm = 64; bm >= 32; bm /= 2)
+      if (*rows == 0 && split_smem(bm, s != 0, d, k) <= SMEM_LIMIT) {
+        *rows = bm;
+        *streamed = s;
+      }
+  return (long long)SMEM_LIMIT;
+}
+
+// Column spans per row block for an [m,d] x [n,d] search with this k and
+// plan: the fewest spans that give at least one block per resident slot on
+// the card and fill the last wave to 90% (else the best-filled count up to
+// twice that); 0 when the plan does not fit one block's shared memory.
+// Each span costs its own warm-up of the top-k lists, so fewer spans are
+// faster once the card is full.
+extern "C" int repro_knn_splits(int m, int n, int d, int k, int rows, int streamed) {
+  const SplitKernel kern = split_kernel(rows, streamed != 0, true);
+  const size_t smem = split_smem(rows, streamed != 0, d, k);
+  if (kern == nullptr || k < 1 || k > KMAX || smem > SMEM_LIMIT) return 0;
   int dev = 0, sms = 132, per_sm = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = split_smem(rw, d, k);
-  if (rw == 8) {
-    cudaFuncSetAttribute(knn_split<8, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn_split<8, true>, THREADS, smem);
-  } else {
-    cudaFuncSetAttribute(knn_split<4, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn_split<4, true>, THREADS, smem);
-  }
+  cudaFuncSetAttribute((const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kern, THREADS, smem);
   const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
-  const long row_blocks = std::max(1L, (m + 8L * rw - 1) / (8L * rw));
+  const long row_blocks = std::max(1L, (m + (long)rows - 1) / rows);
   // a span keeps at least 4 tiles and k columns; at most MAX_SPLITS spans
   const long most = std::min<long>(MAX_SPLITS, std::max<long>(1, n / std::max(4 * BN, k)));
   const long least = std::min<long>(most, (slots + row_blocks - 1) / row_blocks);
@@ -526,16 +590,19 @@ extern "C" int repro_knn_splits(int m, int n, int d, int k) {
 }
 
 // part_d/part_i: [splits, m, k] scratch (unused when splits == 1); xn: [n]
-// scratch for L2.  Launches sq_norms (L2), knn_split, and knn_merge when
+// scratch for L2.  Launches sq_norms (L2), the plan's split kernel (`rows`
+// queries a block, the Q panel resident or streamed), and knn_merge when
 // splits > 1; returns the first launch error.
 extern "C" int repro_knn(const float* q, const float* x, float* xn, float* part_d,
                          int* part_i, float* out_d, int* out_i, int m, int n, int d,
-                         int k, int metric_ip, int splits, void* stream) {
-  if (k < 1 || k > KMAX || splits < 1) return (int)cudaErrorInvalidValue;
-  const int rw = pick_rw(d, k);
-  if (rw == 0) return (int)cudaErrorInvalidValue;
+                         int k, int metric_ip, int rows, int streamed, int splits,
+                         void* stream) {
+  const bool l2 = !metric_ip, stream_q = streamed != 0;
+  const SplitKernel kern = split_kernel(rows, stream_q, l2);
+  const size_t smem = split_smem(rows, stream_q, d, k);
+  if (k < 1 || k > KMAX || splits < 1 || kern == nullptr || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool l2 = !metric_ip;
   if (l2 && n > 0) {
     sq_norms<<<(n + WARPS - 1) / WARPS, THREADS, 0, st>>>(x, xn, n, d);
     const cudaError_t err = cudaGetLastError();
@@ -543,19 +610,20 @@ extern "C" int repro_knn(const float* q, const float* x, float* xn, float* part_
   }
   float* pd = splits > 1 ? part_d : out_d;
   int* pi = splits > 1 ? part_i : out_i;
-  const int vec = d % 4 == 0 && (uintptr_t)x % 16 == 0;
-  int rc;
-  if (rw == 8)
-    rc = l2 ? launch_split<8, true>(q, x, xn, pd, pi, m, n, d, k, splits, vec, st)
-            : launch_split<8, false>(q, x, xn, pd, pi, m, n, d, k, splits, vec, st);
-  else
-    rc = l2 ? launch_split<4, true>(q, x, xn, pd, pi, m, n, d, k, splits, vec, st)
-            : launch_split<4, false>(q, x, xn, pd, pi, m, n, d, k, splits, vec, st);
-  if (rc != 0 || splits == 1) return rc;
-  const size_t smem = (size_t)splits * k * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(knn_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  // 16-byte copies of x, and of q where it streams through the ring
+  const int vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 && (!stream_q || (uintptr_t)q % 16 == 0);
+  cudaError_t err =
+      cudaFuncSetAttribute((const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  knn_merge<<<m, 128, smem, st>>>(part_d, part_i, out_d, out_i, m, k, splits);
+  const int span = (n + splits - 1) / splits;
+  kern<<<dim3((m + rows - 1) / rows, splits), THREADS, smem, st>>>(q, x, xn, pd, pi, m, n, d, k,
+                                                                   span, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t merge_smem = (size_t)splits * k * (sizeof(float) + sizeof(int));
+  err = cudaFuncSetAttribute(knn_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)merge_smem);
+  if (err != cudaSuccess) return (int)err;
+  knn_merge<<<m, 128, merge_smem, st>>>(part_d, part_i, out_d, out_i, m, k, splits);
   return (int)cudaGetLastError();
 }

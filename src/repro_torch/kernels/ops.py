@@ -18,14 +18,17 @@ models' training path goes through K5 and the FA2 backward instead
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import distance as _distance
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import topk as _topk
+from repro_torch.telemetry.trace import current_tracer
 
 
 # Listeners of the work an attention call on ``meta`` tensors stands for:
@@ -103,12 +106,24 @@ def pairwise_distance_u8(cq: torch.Tensor, cx: torch.Tensor, scale: float,
 
 
 def knn(q: torch.Tensor, x: torch.Tensor, k: int, metric: str = "l2"):
-    """Exact kNN (ascending): [M,D] × [N,D] → ([M,k] dists, [M,k] idx)."""
+    """Exact kNN (ascending): [M,D] × [N,D] → ([M,k] dists, [M,k] idx).
+
+    While a tracer is enabled each call is recorded
+    (:func:`repro_torch.kernels.knn_launches`): on the card with CUDA
+    events around K4's launches (:func:`topk.knn_cuda`), on the CPU with
+    the plain path's wall time.  Untraced, nothing is recorded and nothing
+    waits."""
     if _on_cuda(q, x):
         d, i = _topk.knn_cuda(q.float().contiguous(), x.float().contiguous(),
                               k, metric)
         return d, i.long()
-    return ref.knn(q.float(), x.float(), k, metric)
+    if not current_tracer().enabled:
+        return ref.knn(q.float(), x.float(), k, metric)
+    t0 = time.perf_counter()
+    out = ref.knn(q.float(), x.float(), k, metric)
+    _build.record_knn(q.shape[0], x.shape[0], q.shape[1], k,
+                      time.perf_counter() - t0)
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

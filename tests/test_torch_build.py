@@ -3,7 +3,10 @@ the CPU, on ``tests/test_search_backends.py``'s fixture
 (``make_clustered(2000, 32, spread=1.0, seed=7)``, 4 clusters, R=16, L=32):
 
 * k-means centroids to 1e-4 (f32 sums in another order) and identical
-  partition assignments, originals and replicas alike;
+  partition assignments, originals and replicas alike; where a cluster
+  keeps one vector alone, the port also replicates it into its nearest
+  other cluster, and its merged row has edges where the reference's is
+  empty;
 * ``optimize_graph`` and ``merge_shard_indexes`` bit-identical given the
   same kNN input and shard graphs;
 * the port's ``build_scalegann`` reaches recall@10 within 0.01 of the
@@ -66,6 +69,42 @@ def test_partition_assignments_identical(ds, selective):
         np.testing.assert_array_equal(g.ids, w.ids)
         np.testing.assert_array_equal(g.is_replica, w.is_replica)
     assert got.stats == want.stats
+
+
+@pytest.mark.parametrize("omega", [2, 1])
+def test_lone_vector_gets_a_replica_where_omega_allows(ds, omega):
+    """A centre placed on one outlying vector keeps it alone, as k-means's
+    re-seed at the farthest point can: the reference leaves that vector
+    with no edge.  The port replicates it into its nearest other cluster
+    (ω = 2), and every merged row has an edge; at ω = 1 it cannot."""
+    x = ds.data.copy()
+    x[1234] += 40.0  # far from every cluster
+    cfg = dict(CFG, omega=omega, n_clusters=5)
+    cents = kmeans.train_centroids(ds.data, 4, iters=12, seed=0,
+                                   device="cpu")
+    cents = np.concatenate([cents, x[1234][None]])
+    want = jpartition.partition(x, JIndexConfig(**cfg), centroids=cents)
+    got = partition.partition(x, IndexConfig(**cfg), centroids=cents,
+                              device="cpu")
+    assert [len(w.ids) for w in want.shards][4] == 1
+    d = ((cents[:4] - x[1234]) ** 2).sum(1)  # the nearest with space
+    d[[len(w.ids) >= want.stats["capacity"] for w in want.shards[:4]]] = \
+        np.inf
+    for c, (g, w) in enumerate(zip(got.shards, want.shards)):
+        rescued = omega == 2 and c == int(np.argmin(d))
+        np.testing.assert_array_equal(
+            g.ids, np.append(w.ids, 1234) if rescued else w.ids)
+        np.testing.assert_array_equal(
+            g.is_replica, np.append(w.is_replica, True) if rescued
+            else w.is_replica)
+    assert got.stats["n_replicas"] == want.stats["n_replicas"] + (omega == 2)
+    assert got.n_rescued == (omega == 2)
+    idxs = [cagra.build_shard_index(x[s.ids], IndexConfig(**cfg),
+                                    device="cpu") for s in got.shards]
+    graph = merge.merge_shard_indexes(got.shards, idxs, len(x), 16,
+                                      data=x).graph
+    empty = (graph < 0).all(1)
+    assert empty.sum() == (omega == 1) and empty[1234] == (omega == 1)
 
 
 def test_knn_graph_matches_reference(ds):

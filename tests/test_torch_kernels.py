@@ -124,25 +124,33 @@ def _split_knn(dist: torch.Tensor, k: int, splits: int, tile: int = 16,
 
 @pytest.mark.parametrize("splits", [1, 3, 9])
 @pytest.mark.parametrize("kind,metric", [("ties", "l2"), ("ties", "ip"),
-                                         ("random", "l2")])
+                                         ("random", "l2"), ("gist", "l2"),
+                                         ("gist", "ip")])
 def test_split_knn_decomposition_matches_reference(kind, metric, splits):
     """K4's split-N, threshold-filtered decomposition keeps the reference's
     (distance, index) order exactly, ties included, whatever the split:
-    the argument of ``csrc/knn.cu`` run in torch ops on the CPU."""
+    the argument of ``csrc/knn.cu`` run in torch ops on the CPU.  ``gist``:
+    GIST-960's width at a CAGRA build's k = L + 1 = 129, in tiles of the
+    streamed block's rows."""
     rng = np.random.default_rng(11)
+    k, tile = 60, 16  # k: more than a span holds when splits = 9
     if kind == "ties":  # integer coordinates, every point twice: exact f32
         x = rng.integers(0, 3, (200, 8)).astype(np.float32)
         x = np.concatenate([x, x])
+    elif kind == "gist":
+        x = rng.standard_normal((400, 960)).astype(np.float32)
+        k, tile = 129, 64  # the streamed block's rows at D = 960, k = 129
     else:
         x = rng.standard_normal((400, 8)).astype(np.float32)
     q = x[::37].copy()
-    k = 60  # more than a span holds when splits = 9
     wd, wi = jops.knn(jnp.asarray(q), jnp.asarray(x), k, metric)
     gd, gi = _split_knn(tref.pairwise_distance(_t(q), _t(x), metric), k,
-                        splits)
+                        splits, tile=tile)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    # |q|^2 + |x|^2 - 2 q.x rounds to float32's epsilon of the squared norms
+    atol = max(1e-4, 1e-6 * float((x * x).sum(1).max()))
     np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5,
-                               atol=1e-4)
+                               atol=atol)
 
 
 def test_knn_pads_short_rows():

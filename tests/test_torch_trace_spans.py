@@ -5,16 +5,24 @@ records the merge's steps under ``build.merge`` and each shard build's
 the graph; a traced ``search()`` records its phases under
 ``search.engine`` on the merged f32, fused staged bf16 and split paths;
 tracing changes no output; untraced, ``search()`` reads the tracer's
-``enabled`` flag and nothing else."""
+``enabled`` flag and nothing else.  ``shard.knn`` carries the width at
+SIFT's and GIST's widths, and on the CPU no K4 block shape (K4 puts it
+there when it launches: ``tests/test_torch_knn_card.py``);
+``build.partition`` counts the lone vectors it rescued; traced, each kNN
+call is recorded for the benchmark's K4 roofline, untraced none, and
+``reset_counts()`` drops what came before."""
 
 import itertools
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.configs.base import IndexConfig
 from repro_torch.core.builder import build_scalegann
+from repro_torch.core.cagra import build_shard_index
 from repro_torch.data.synthetic import make_clustered
+from repro_torch.kernels import knn_launches, ops, reset_counts
 from repro_torch.search import search
 from repro_torch.telemetry import NullTracer, Tracer, use_tracer
 
@@ -57,7 +65,7 @@ def builds(ds):
     return plain, traced, _spans(tracer)
 
 
-def test_build_spans_nest_and_count_the_merge(builds):
+def test_build_spans_nest_and_count_the_merge(ds, builds):
     plain, traced, spans = builds
     np.testing.assert_array_equal(traced.index.graph, plain.index.graph)
     assert traced.index.medoid == plain.index.medoid
@@ -74,6 +82,9 @@ def test_build_spans_nest_and_count_the_merge(builds):
     assert n_edges >= n_unique >= n_kept > 0
     assert n_kept == int((traced.index.graph >= 0).sum())
 
+    (part,) = [s for s in spans if s[0] == "build.partition"]
+    assert part[3]["n_rescued"] == 0
+
     shards = [s for s in spans if s[0] == "build.shard"]
     assert len(shards) == len(traced.shards)
     for shard in shards:
@@ -82,6 +93,8 @@ def test_build_spans_nest_and_count_the_merge(builds):
         n = shard[3]["n"]
         assert knn[3]["n"] == n
         assert knn[3]["k"] == min(CFG.build_degree + 1, n)
+        assert knn[3]["d"] == ds.data.shape[1]
+        assert "block_rows" not in knn[3] and "panel" not in knn[3]
         assert [s[0] for s in _children(spans, prune[1])] == [
             "prune.detour", "prune.select", "prune.dedup"]
 
@@ -146,3 +159,46 @@ def test_untraced_search_reads_only_enabled(ds, builds, case):
     with use_tracer(counting):
         search(topo, ds.queries, 10, width=32, device="cpu", **kw)
     assert counting.reads == []
+
+
+@pytest.mark.parametrize("d", [16, 864, 960])
+def test_shard_knn_span_records_width_and_block_shape(d):
+    """A CAGRA shard at a build's k = L + 1 = 129: the width on
+    ``shard.knn``, and no block shape, since on the CPU no K4 block runs
+    (the card's is checked in ``tests/test_torch_knn_card.py``)."""
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((200, d)).astype(np.float32)
+    cfg = IndexConfig(degree=64, build_degree=128)
+    tracer = Tracer()
+    with use_tracer(tracer):
+        build_shard_index(x, cfg, device="cpu")
+    (knn,) = [s[3] for s in _spans(tracer) if s[0] == "shard.knn"]
+    assert (knn["n"], knn["k"], knn["d"]) == (200, 129, d)
+    assert "block_rows" not in knn and "panel" not in knn
+
+
+def test_knn_calls_are_recorded_only_while_traced():
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((30, 24)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((90, 24)).astype(np.float32))
+    reset_counts()
+    ops.knn(q, x, 7)
+    assert knn_launches() == []
+    with use_tracer(Tracer()):
+        ops.knn(q, x, 7)
+        ops.knn(q[:5], x, 3, "ip")
+    (a, b) = knn_launches()
+    assert a[:4] == (30, 90, 24, 7) and b[:4] == (5, 90, 24, 3)
+    assert a[4] > 0 and b[4] > 0  # the plain path's wall time
+
+
+def test_reset_counts_drops_earlier_knn_calls():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((50, 8)).astype(np.float32))
+    with use_tracer(Tracer()):
+        ops.knn(x, x, 4)
+        reset_counts()
+        ops.knn(x[:10], x, 4)
+    assert [r[:4] for r in knn_launches()] == [(10, 50, 8, 4)]
+    reset_counts()
+    assert knn_launches() == []
